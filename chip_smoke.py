@@ -1,21 +1,38 @@
-"""Run the PyTorch port's per-frame tracking step on one NVIDIA GPU.
+"""Run the PyTorch port's tracking step and keyframe integration on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-1. device: the card's name and power limit; build both CUDA kernels
-   (``ptam_cg_tpu_torch/csrc``) with nvcc for sm_90a;
+1. device: the card's name and power limit; build the three CUDA kernels
+   (``ptam_cg_tpu_torch/csrc``) with nvcc for sm_90a, one nvcc each, all
+   at once;
 2. K1 (FAST-10) against its plain PyTorch version on the 4 pyramid levels
    of a 640x480 frame: bit-identical; both timed;
-3. K2 (window gather) against its plain version at the tracking path's
-   window shapes, f32 and bool: bit-identical; both timed;
-4. the slice: a 2048-point planar map, then ``track_frame_from_image`` on
+2b. K3 (Shi-Tomasi) the same way: bit-identical; both timed, with device
+   times from torch.profiler;
+3. K2 (window gather) against its plain version at the window shapes of
+   the tracking and keyframe paths, f32 and bool: bit-identical; timed;
+4. tracking: a 2048-point planar map, then ``track_frame_from_image`` on
    frames 1..60 of the sequence. Every frame must be GOOD, within 0.02 in
    camera centre and 0.01 rad in rotation, and the kernels' launch counts
    must equal the calls the step makes times 60;
 5. the same frame, uniforms and start state (with the coarse stage on)
-   through the port on the card and on the CPU: the same found set up to differences traced to float noise (under
-   1% of found points), and a pose within 1e-5.
+   through the port on the card and on the CPU: the same found set up to
+   differences traced to float noise (under 1% of found points), and a
+   pose within 1e-5;
+6. the keyframe path: a map of frame 0's Shi-Tomasi candidates
+   (``candidate_map_scene``, 2048 slots, 4 keyframe slots); track frames
+   1..40; ``need_new_kf``; ``build_frame`` and ``integrate_keyframe_program``
+   on frame 40 with its tracker measurements; new points must lie on the
+   z=0 plane (median |z| < 0.02) and frames 41..60 must track GOOD within
+   the phase-4 bars against the grown map, finding some new points. The
+   launch counts of the whole phase must equal those the code makes.
+   ``build_frame`` and the integration are timed;
+7. the integration of phase 6 on the card and on the CPU from the same
+   map, features and measurements: the same re-found set and new points
+   per level up to differences traced to float noise (at most 1%), new
+   points within 1e-3 and measurements within 1e-3 px.
 The line before the last is a JSON summary of the kernels; the last line
 is the JSON result. Times are medians of CUDA-event timings.
 """
@@ -31,8 +48,13 @@ import warnings
 REF_PARAMS = (1.0803, 1.43987, 0.519983, 0.548655, 0.244943)
 SIZE = (640, 480)
 N_FRAMES = 60
+N_TRACK_KF = 40      # phase 6: the frame that becomes a keyframe
+CAND_MIN = 50.0      # bench_mapping.py's candidate threshold
 POSE_TOL = 1e-5
+POS_TOL = 1e-3
 REPS = 25
+INT_REPS = 10
+KERNELS = ("fast10", "gather_windows", "shi_tomasi")
 
 
 def fail(msg):
@@ -45,20 +67,53 @@ def check(ok, msg):
         fail(msg)
 
 
-def time_ms(fn, torch):
-    """Median over REPS CUDA-event timings of one call, after a warm-up."""
-    fn()
+def time_ms(fn, torch, reps=REPS, setup=None):
+    """Median over ``reps`` CUDA-event timings of one call, after a
+    warm-up. ``setup`` makes each call's argument, outside the timing."""
+    setup = setup or (lambda: None)
+    fn(setup())
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
+        arg = setup()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        fn(arg)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_us(fn, torch, n=20, match=None, setup=None):
+    """Device time (us) and kernels per call from torch.profiler over
+    ``n`` calls, counting only kernels whose name holds ``match`` if
+    given. (None, 0) when the profiler records no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    def arg():
+        return setup() if setup else None
+
+    fn(arg())
+    args = [arg() for _ in range(n)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for a in args:
+            fn(a)
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        if t > 0 and (match is None or match in e.key):
+            total += t
+            count += e.count
+    return (total / n if count else None), count / n
+
+
+def fmt_us(us):
+    return "not measured" if us is None else f"{us:.2f} us"
 
 
 def max_abs_diff(a, b):
@@ -71,12 +126,15 @@ def main():
         fail("no CUDA device")
     import numpy as np
 
-    from ptam_cg_tpu.config import FrontendConfig
+    from ptam_cg_tpu.config import FrontendConfig, MapMakerConfig
     from ptam_cg_tpu_torch.io import synth
     from ptam_cg_tpu_torch.kernels import _build
     from ptam_cg_tpu_torch.kernels import fast as kfast
     from ptam_cg_tpu_torch.kernels import gather as kgather
-    from ptam_cg_tpu_torch.models import tracker
+    from ptam_cg_tpu_torch.kernels import shi_tomasi as kshi
+    from ptam_cg_tpu_torch.models import keyframe as kflib
+    from ptam_cg_tpu_torch.models import map_state as ms
+    from ptam_cg_tpu_torch.models import mapmaker, tracker
     from ptam_cg_tpu_torch.ops import image as imops
     from ptam_cg_tpu_torch.utils import parity, se3
     from ptam_cg_tpu_torch.utils.tree import to_device
@@ -84,6 +142,14 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    mods = {"fast10": kfast, "gather_windows": kgather, "shi_tomasi": kshi}
+
+    def reset_counts():
+        for mod in mods.values():
+            mod.launches = 0
+
+    def counts():
+        return {name: mod.launches for name, mod in mods.items()}
 
     # ---- 1. device and build ----
     smi = subprocess.run(
@@ -95,25 +161,28 @@ def main():
     print(f"[1] torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
-    for name, build in (("fast10", kfast.build),
-                        ("gather_windows", kgather.build)):
-        t0 = time.perf_counter()
-        build()
+    t0 = time.perf_counter()
+    _build.load_all(KERNELS)
+    print(f"[1] built and loaded {len(KERNELS)} kernels in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name in KERNELS:
         seconds, log = _build.build_info(name)
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-        print(f"[1] built {name}: nvcc {seconds:.1f} s, load "
-              f"{time.perf_counter() - t0:.1f} s; {' | '.join(regs)}")
+        print(f"[1] {name}: nvcc {seconds:.1f} s; {' | '.join(regs)}")
+
+    def entry(name, source, replaces):
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=0, max_abs_err=0.0, ms=0.0, plain_ms=0.0)
 
     kernels = {
-        "fast10": dict(name="fast10", route="cuda",
-                       source="ptam_cg_tpu_torch/csrc/fast10.cu",
-                       replaces="ptam_cg_tpu/ops/pallas_kernels.py:241",
-                       max_abs_err=0.0, ms=0.0, plain_ms=0.0),
-        "gather_windows": dict(
-            name="gather_windows", route="cuda",
-            source="ptam_cg_tpu_torch/csrc/gather_windows.cu",
-            replaces="ptam_cg_tpu/ops/pallas_gather.py:50",
-            max_abs_err=0.0, ms=0.0, plain_ms=0.0)}
+        "fast10": entry("fast10", "ptam_cg_tpu_torch/csrc/fast10.cu",
+                        "ptam_cg_tpu/ops/pallas_kernels.py:241"),
+        "gather_windows": entry(
+            "gather_windows", "ptam_cg_tpu_torch/csrc/gather_windows.cu",
+            "ptam_cg_tpu/ops/pallas_gather.py:50"),
+        "shi_tomasi": entry("shi_tomasi",
+                            "ptam_cg_tpu_torch/csrc/shi_tomasi.cu",
+                            "ptam_cg_tpu/ops/pallas_kernels.py:326")}
 
     # ---- 2. K1 against its plain version ----
     seq = synth.SyntheticSequence(REF_PARAMS, image_size=SIZE,
@@ -127,16 +196,40 @@ def main():
         err = max(max_abs_diff(m_k, m_p), max_abs_diff(s_k, s_p))
         check(torch.equal(m_k, m_p) and torch.equal(s_k, s_p),
               f"K1 differs from its plain version at level {lev}: {err}")
-        ms = time_ms(lambda: kfast.fast_score_map(im, float(t)), torch)
-        plain = time_ms(lambda: kfast.fast_score_map_plain(im, float(t)),
+        ms_k = time_ms(lambda _: kfast.fast_score_map(im, float(t)), torch)
+        plain = time_ms(lambda _: kfast.fast_score_map_plain(im, float(t)),
                         torch)
         k = kernels["fast10"]
-        k["ms"] += ms
+        k["ms"] += ms_k
         k["plain_ms"] += plain
         k["max_abs_err"] = max(k["max_abs_err"], err)
         print(f"[2] K1 level {lev} {tuple(im.shape)} t={t}: bit-identical, "
-              f"{int(m_k.sum())} corners; kernel {ms:.4f} ms, "
+              f"{int(m_k.sum())} corners; kernel {ms_k:.4f} ms, "
               f"plain {plain:.4f} ms  [{card}]")
+
+    # ---- 2b. K3 against its plain version ----
+    k = kernels["shi_tomasi"]
+    for lev, im in enumerate(pyramid):
+        got = kshi.shi_tomasi_score_map(im)
+        ref = kshi.shi_tomasi_score_map_plain(im)
+        err = max_abs_diff(got, ref)
+        check(torch.equal(got, ref),
+              f"K3 differs from its plain version at level {lev}: {err}, "
+              f"{int((got != ref).sum())} pixels")
+        ms_k = time_ms(lambda _: kshi.shi_tomasi_score_map(im), torch)
+        plain = time_ms(lambda _: kshi.shi_tomasi_score_map_plain(im), torch)
+        dev_k, _ = device_us(lambda _: kshi.shi_tomasi_score_map(im), torch,
+                             match="shi_tomasi")
+        dev_p, n_p = device_us(lambda _: kshi.shi_tomasi_score_map_plain(im),
+                               torch)
+        k["ms"] += ms_k
+        k["plain_ms"] += plain
+        k["max_abs_err"] = max(k["max_abs_err"], err)
+        print(f"[2b] K3 level {lev} {tuple(im.shape)}: bit-identical, "
+              f"{int((got > CAND_MIN).sum())} px above {CAND_MIN}; kernel "
+              f"{ms_k:.4f} ms, plain {plain:.4f} ms; device: kernel "
+              f"{fmt_us(dev_k)}, plain {fmt_us(dev_p)} ({n_p:.0f} kernels)"
+              f"  [{card}]")
 
     # ---- 3. K2 against its plain version ----
     rng = np.random.default_rng(3)
@@ -149,7 +242,13 @@ def main():
               (frame_atlas, 128, 40, "coarse search window", "f32"),
               (frame_atlas, 128, 33, "coarse corner-mask window", "bool"),
               (frame_atlas, 1024, 30, "fine search window", "f32"),
-              (frame_atlas, 1024, 23, "fine corner-mask window", "bool")]
+              (frame_atlas, 1024, 23, "fine corner-mask window", "bool"),
+              (kf_atlases, 2048, 28, "re-find templates", "f32"),
+              (frame_atlas, 2048, 16, "re-find search window", "f32"),
+              (frame_atlas, 2048, 9, "re-find corner-mask window", "bool"),
+              (kf_atlases, 512, 28, "epipolar templates", "f32"),
+              (frame_atlas, 2048, 8, "epipolar corner patches", "f32"),
+              (frame_atlas, 512, 15, "sub-pixel window", "f32")]
     k = kernels["gather_windows"]
     for src, n, D, what, path_dtype in shapes:
         H, W = src.shape
@@ -163,17 +262,19 @@ def main():
             err = max_abs_diff(got, ref)
             check(torch.equal(got, ref),
                   f"K2 differs from its plain version: {what} {dtype}")
-            ms = time_ms(lambda: kgather.gather_windows(a, org, D), torch)
-            plain = time_ms(lambda: kgather.gather_windows_plain(a, org, D),
+            if dtype != path_dtype:
+                continue
+            ms_k = time_ms(lambda _: kgather.gather_windows(a, org, D), torch)
+            plain = time_ms(lambda _: kgather.gather_windows_plain(a, org, D),
                             torch)
             k["max_abs_err"] = max(k["max_abs_err"], err)
-            if dtype == path_dtype:
-                k["ms"] += ms
-                k["plain_ms"] += plain
-            print(f"[3] K2 {what} N={n} D={D} {dtype}: bit-identical; "
-                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms  [{card}]")
+            k["ms"] += ms_k
+            k["plain_ms"] += plain
+            print(f"[3] K2 {what} N={n} D={D} {dtype}: bit-identical (and "
+                  f"as the other dtype); kernel {ms_k:.4f} ms, plain "
+                  f"{plain:.4f} ms  [{card}]")
 
-    # ---- 4. the slice ----
+    # ---- 4. tracking ----
     t0 = time.perf_counter()
     m, ff0 = synth.planar_map_scene(seq, max_points=2048, per_level=512,
                                     max_kfs=4)
@@ -185,50 +286,61 @@ def main():
           f"{time.perf_counter() - t0:.2f} s")
     check(1500 <= n_points <= 2048, f"map has {n_points} points")
 
-    def step(state, im, prev, **kw):
-        return tracker.track_frame_from_image(state, m, im, prev, seq.cam,
+    def step(state, mp, im, prev, **kw):
+        return tracker.track_frame_from_image(state, mp, im, prev, seq.cam,
                                               SIZE, cam_params, **kw)
 
-    step(tracker.init_tracker_state(seq.pose(0)), frames[0], ff0.sbi_track)
+    def pose_errors(st, i):
+        gt = seq.pose(i)
+        rel = se3.mul(st.pose, se3.inv(gt))
+        r_err = float(torch.linalg.vector_norm(se3.so3_log(rel.R)))
+        c_err = float(torch.linalg.vector_norm(
+            (-st.pose.R.T @ st.pose.t) - (-gt.R.T @ gt.t)))
+        return c_err, r_err
+
+    def off_bars(st, i):
+        c_err, r_err = pose_errors(st, i)
+        if (int(st.quality) != tracker.QUALITY_GOOD or c_err >= 0.02
+                or r_err >= 0.01):
+            return (i, int(st.quality), c_err, r_err)
+        return None
+
+    step(tracker.init_tracker_state(seq.pose(0)), m, frames[0],
+         ff0.sbi_track)
     torch.cuda.synchronize()
 
     state = tracker.init_tracker_state(seq.pose(0), seed=0)
     prev = ff0.sbi_track
     results, step_s = [], []
-    kfast.launches = 0
-    kgather.launches = 0
+    reset_counts()
     for im in frames:
         t1 = time.perf_counter()
-        out = step(state, im, prev)
+        out = step(state, m, im, prev)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t1)
         state, prev = out.state, out.sbi_track
         results.append(out)
-    launches = {"fast10": kfast.launches, "gather_windows": kgather.launches}
-    kernels["fast10"]["launches"] = launches["fast10"]
-    kernels["gather_windows"]["launches"] = launches["gather_windows"]
+    launches = counts()
+    for name, n in launches.items():
+        kernels[name]["launches"] += n
     # Per frame: FAST on 4 levels; templates + image window + mask window
     # for each of the coarse and fine stages.
-    expected = {"fast10": 4 * N_FRAMES, "gather_windows": 6 * N_FRAMES}
+    expected = {"fast10": 4 * N_FRAMES, "gather_windows": 6 * N_FRAMES,
+                "shi_tomasi": 0}
     print(f"[4] launches {launches}, expected {expected}")
     check(launches == expected, "kernel launch counts differ")
 
     found, attempted, coarse, bad = [], [], 0, []
     worst_c, worst_r = 0.0, 0.0
     for i, out in enumerate(results, start=1):
-        st, res = out.state, out.result
-        gt = seq.pose(i)
-        rel = se3.mul(st.pose, se3.inv(gt))
-        r_err = float(torch.linalg.vector_norm(se3.so3_log(rel.R)))
-        c_err = float(torch.linalg.vector_norm(
-            (-st.pose.R.T @ st.pose.t) - (-gt.R.T @ gt.t)))
+        res = out.result
+        c_err, r_err = pose_errors(out.state, i)
         worst_c, worst_r = max(worst_c, c_err), max(worst_r, r_err)
         found.append(int(res.found.sum()))
         attempted.append(int(res.attempted.sum()))
         coarse += int(res.did_coarse)
-        if (int(st.quality) != tracker.QUALITY_GOOD or c_err >= 0.02
-                or r_err >= 0.01):
-            bad.append((i, int(st.quality), c_err, r_err))
+        if off_bars(out.state, i):
+            bad.append(off_bars(out.state, i))
     med = statistics.median(step_s)
     print(f"[4] found/attempted per frame: min {min(found)}/"
           f"{attempted[found.index(min(found))]}, median "
@@ -241,13 +353,16 @@ def main():
           f"{N_FRAMES} frames, 640x480, {n_points} points  [{card}]")
     check(not bad, f"frames off the bars (frame, quality, centre, rot): {bad}")
 
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        step(state, frames[-1], prev)
-        torch.cuda.set_sync_debug_mode("default")
-    syncs = sorted({f"{w.filename}:{w.lineno}" for w in caught
-                    if "called a synchronizing" in str(w.message)})
+    def host_syncs(fn):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            fn()
+            torch.cuda.set_sync_debug_mode("default")
+        return sorted({f"{w.filename}:{w.lineno}" for w in caught
+                       if "called a synchronizing" in str(w.message)})
+
+    syncs = host_syncs(lambda: step(state, m, frames[-1], prev))
     print(f"[4] host syncs in one step: {len(syncs)} {syncs}")
 
     # ---- 5. card against CPU ----
@@ -257,14 +372,15 @@ def main():
     # A start velocity above the coarse gate, so both stages run.
     start = dataclasses.replace(tracker.init_tracker_state(seq.pose(0)),
                                 msd_vel=torch.tensor(0.01, device=dev))
-    gpu = step(start, frames[0], ff0.sbi_track, rand_coarse=rc.to(dev),
+    gpu = step(start, m, frames[0], ff0.sbi_track, rand_coarse=rc.to(dev),
                rand_fine=rf.to(dev)).result
     cpu_state = to_device(start, "cpu")
     cpu_state.generator = torch.Generator()
+    cpu_cam = to_device(seq.cam, "cpu")
     t1 = time.perf_counter()
     cpu = tracker.track_frame_from_image(
         cpu_state, to_device(m, "cpu"), frames[0].cpu(),
-        to_device(ff0.sbi_track, "cpu"), to_device(seq.cam, "cpu"), SIZE,
+        to_device(ff0.sbi_track, "cpu"), cpu_cam, SIZE,
         cam_params.cpu(), rand_coarse=rc, rand_fine=rf).result
     cpu_s = time.perf_counter() - t1
     diffs = parity.found_set_differences(
@@ -283,6 +399,148 @@ def main():
     check(all(d["reason"] for d in diffs), "unexplained found-set difference")
     check(len(diffs) < 0.01 * n_found, "too many found-set differences")
     check(d_R <= POSE_TOL and d_t <= POSE_TOL, "card and CPU poses differ")
+
+    # ---- 6. the keyframe path ----
+    mm_cfg = MapMakerConfig()
+    t0 = time.perf_counter()
+    mk, ffk0 = synth.candidate_map_scene(seq, max_points=2048, max_kfs=4,
+                                         candidate_min_score=CAND_MIN)
+    n_points = int(mk.point_valid.sum())
+    P = mk.point_pos.shape[0]
+    torch.cuda.synchronize()
+    print(f"[6] map: {n_points} points from frame 0's candidates per level "
+          f"{ffk0.cand_valid.sum(-1).tolist()}, {P} slots, 4 KF slots; "
+          f"built in {time.perf_counter() - t0:.2f} s")
+    check(1000 <= n_points < P, f"map has {n_points} points")
+
+    def integrate(mp, ff, pose, res, diag=None):
+        return mapmaker.integrate_keyframe_program(
+            mp, ff, pose, res.meas_point, res.meas_pos, res.meas_level,
+            res.meas_subpix, res.meas_valid, res.depth_mean, res.depth_sigma,
+            torch.zeros(P, dtype=torch.bool, device=mp.point_pos.device),
+            seq.cam if mp.point_pos.is_cuda else cpu_cam, SIZE,
+            mm_cfg.wiggle_scale, mm_cfg.thin_candidates_radius, diag=diag)
+
+    state = tracker.init_tracker_state(seq.pose(0), seed=1)
+    prev = ffk0.sbi_track
+    bad = []
+    reset_counts()
+    for i in range(1, N_TRACK_KF + 1):
+        out = step(state, mk, frames[i - 1], prev)
+        state, prev = out.state, out.sbi_track
+        bad += [b for b in [off_bars(state, i)] if b]
+    res_kf, state_kf = out.result, state
+    check(not bad, f"frames 1..{N_TRACK_KF} off the bars: {bad}")
+    need = bool(mapmaker.need_new_kf(mk, state_kf.pose, state_kf.depth_mean,
+                                     1.0, mm_cfg.max_kf_dist_wiggle_mult))
+    print(f"[6] frames 1..{N_TRACK_KF} GOOD; need_new_kf at frame "
+          f"{N_TRACK_KF}: {need} (wiggle_depth_norm 1.0); integrating "
+          f"anyway, as bench_mapping.py does")
+
+    before = counts()
+    im_kf = frames[N_TRACK_KF - 1]
+    ff = kflib.build_frame(im_kf, candidate_min_score=CAND_MIN)
+    m_before = ms.copy_map(mk)
+    mk2, new_mask, slot_n = integrate(mk, ff, state_kf.pose, res_kf)
+    slot, n_added = slot_n.tolist()
+    kf_launches = {n: c - before[n] for n, c in counts().items()}
+    # build_frame: FAST and Shi-Tomasi on 4 levels. Integration: the
+    # re-find gathers templates, search windows and mask windows; each of
+    # the 4 epipolar levels templates, corner patches and sub-pixel windows.
+    kf_expected = {"fast10": 4, "gather_windows": 3 + 3 * 4, "shi_tomasi": 4}
+    new_idx = torch.nonzero(new_mask)[:, 0]
+    per_level = {lev: int((mk2.point_src_level[new_idx] == lev).sum())
+                 for lev in mapmaker.EPI_LEVEL_ORDER}
+    refound = int((mk2.meas_valid[slot]
+                   & (mk2.meas_source[slot] == ms.SRC_REFIND)).sum())
+    z = mk2.point_pos[new_idx, 2].abs()
+    print(f"[6] frame {N_TRACK_KF}: candidates per level "
+          f"{ff.cand_valid.sum(-1).tolist()}; keyframe slot {slot}; "
+          f"{int(res_kf.meas_valid.sum())} tracker measurements; "
+          f"re-found {refound}; added {n_added} points, per level "
+          f"{per_level}; launches of build + integration {kf_launches}, "
+          f"expected {kf_expected}")
+    check(kf_launches == kf_expected, "keyframe-path launch counts differ")
+    check(n_added > 0 and n_added == len(new_idx), "no points were added")
+    med_z = float(z.median())
+    print(f"[6] new points' world |z|: median {med_z:.2e}, 90th percentile "
+          f"{float(torch.quantile(z, 0.9)):.2e}, max {float(z.max()):.2e} "
+          f"(the scene is the z=0 plane at depth 1.5)")
+    check(med_z < 0.02, f"new points off the plane: median |z| {med_z}")
+
+    new_found, bad = 0, []
+    for i in range(N_TRACK_KF + 1, N_FRAMES + 1):
+        out = step(state, mk2, frames[i - 1], prev)
+        state, prev = out.state, out.sbi_track
+        bad += [b for b in [off_bars(state, i)] if b]
+        r = out.result
+        new_found += int((r.meas_valid & new_mask[r.meas_point]).sum())
+    launches = counts()
+    for name, n in launches.items():
+        kernels[name]["launches"] += n
+    expected = {"fast10": 4 * N_FRAMES + 4,
+                "gather_windows": 6 * N_FRAMES + kf_expected["gather_windows"],
+                "shi_tomasi": 4}
+    print(f"[6] frames {N_TRACK_KF + 1}..{N_FRAMES} against the grown map: "
+          f"{new_found} measurements of new points found; off the bars: "
+          f"{bad}; launches of the phase {launches}, expected {expected}")
+    check(not bad, "frames off the bars after the keyframe")
+    check(new_found > 0, "no new point was found after the keyframe")
+    check(launches == expected, "phase-6 launch counts differ")
+
+    build_ms = time_ms(lambda _: kflib.build_frame(
+        im_kf, candidate_min_score=CAND_MIN), torch)
+    int_ms = time_ms(lambda mp: integrate(mp, ff, state_kf.pose, res_kf),
+                     torch, reps=INT_REPS,
+                     setup=lambda: ms.copy_map(m_before))
+    int_host = []
+    for _ in range(INT_REPS):
+        mp = ms.copy_map(m_before)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        integrate(mp, ff, state_kf.pose, res_kf)
+        torch.cuda.synchronize()
+        int_host.append(time.perf_counter() - t1)
+    mp = ms.copy_map(m_before)
+    syncs = host_syncs(lambda: integrate(mp, ff, state_kf.pose, res_kf))
+    print(f"[6] host syncs in one integration: {len(syncs)} {syncs}")
+    b_dev, b_n = device_us(lambda _: kflib.build_frame(
+        im_kf, candidate_min_score=CAND_MIN), torch, n=5)
+    i_dev, i_n = device_us(lambda mp: integrate(mp, ff, state_kf.pose, res_kf),
+                           torch, n=3, setup=lambda: ms.copy_map(m_before))
+    print(f"[6] build_frame 640x480: {build_ms:.3f} ms (CUDA events), device "
+          f"{fmt_us(b_dev)} in {b_n:.0f} kernels; integration of {n_points} "
+          f"points: {int_ms:.3f} ms (CUDA events), host "
+          f"{statistics.median(int_host) * 1e3:.3f} ms, device "
+          f"{fmt_us(i_dev)} in {i_n:.0f} kernels  [{card}]")
+
+    # ---- 7. card against CPU for the integration ----
+    t1 = time.perf_counter()
+    cpu_m, _, cpu_sn = integrate(
+        ms.copy_map(to_device(m_before, "cpu")), to_device(ff, "cpu"),
+        to_device(state_kf.pose, "cpu"), to_device(res_kf, "cpu"))
+    cpu_s = time.perf_counter() - t1
+    diag = {}
+    gpu_m, _, gpu_sn = integrate(ms.copy_map(m_before), ff, state_kf.pose,
+                                 res_kf, diag=diag)
+    fields = ("point_valid", "point_src_level", "point_center", "point_pos",
+              "meas_valid", "meas_pos", "meas_source")
+    diffs, n7 = parity.integration_differences(
+        {f: getattr(cpu_m, f) for f in fields},
+        {f: getattr(gpu_m, f) for f in fields}, m_before.point_valid,
+        int(cpu_sn[0]), diag, mm_cfg.thin_candidates_radius, POS_TOL)
+    for d in diffs:
+        print(f"[7] difference: {d}")
+    n_cmp = n7["refound"] + sum(n7["added"].values())
+    print(f"[7] card vs CPU integration: slot {int(gpu_sn[0])} vs "
+          f"{int(cpu_sn[0])}, added {int(gpu_sn[1])} vs {int(cpu_sn[1])} "
+          f"(CPU per level {n7['added']}), re-found by the CPU "
+          f"{n7['refound']}; {len(diffs)} differences; CPU integration "
+          f"{cpu_s:.2f} s")
+    check(int(gpu_sn[0]) == int(cpu_sn[0]), "card and CPU slots differ")
+    check(all(d["reason"] for d in diffs),
+          "unexplained integration difference")
+    check(len(diffs) <= 0.01 * n_cmp, "too many integration differences")
 
     check(not any(k == "jax" or k.startswith("jax.") for k in sys.modules),
           "jax was imported")

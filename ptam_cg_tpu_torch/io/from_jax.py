@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ptam_cg_tpu_torch.camera.atan import Camera
-from ptam_cg_tpu_torch.models.keyframe import TrackFeatures
+from ptam_cg_tpu_torch.models.keyframe import FrameFeatures, TrackFeatures
 from ptam_cg_tpu_torch.models.map_state import MapState
 from ptam_cg_tpu_torch.models.tracker import TrackerState
 from ptam_cg_tpu_torch.ops.sbi import SBI
@@ -55,6 +55,15 @@ def track_features_from_numpy(d: dict, device=None) -> TrackFeatures:
     return TrackFeatures(atlas=tensor(d["atlas"], device),
                          corner_mask=tensor(d["corner_mask"], device),
                          sbi=sbi_from_numpy(d["sbi"], device),
+                         sbi_track=sbi_from_numpy(d["sbi_track"], device))
+
+
+def frame_features_from_numpy(d: dict, device=None) -> FrameFeatures:
+    """From a JAX FrameFeatures."""
+    fields = {f.name: tensor(d[f.name], device)
+              for f in dataclasses.fields(FrameFeatures)
+              if f.name not in ("sbi", "sbi_track")}
+    return FrameFeatures(**fields, sbi=sbi_from_numpy(d["sbi"], device),
                          sbi_track=sbi_from_numpy(d["sbi_track"], device))
 
 

@@ -1,6 +1,8 @@
 """Synthetic planar scenes with ground-truth poses (port of the planar
-part of ``ptam_cg_tpu.io.synth``), plus ``planar_map_scene``, which builds
-a tracking map on the scene the way ``bench.py`` does.
+part of ``ptam_cg_tpu.io.synth``), plus two one-keyframe maps of the
+scene: ``planar_map_scene`` (FAST corners, the tracking map ``bench.py``
+builds) and ``candidate_map_scene`` (Shi-Tomasi candidates with dense root
+measurements, the mapping scene of ``bench_mapping.py``).
 
 The texture is drawn from a numpy ``Generator``: it has the structure of
 the JAX package's texture but not its values (jax.random draws differ),
@@ -138,10 +140,9 @@ def planar_map_scene(seq: SyntheticSequence, max_points: int = 2048,
                      frontend_cfg: FrontendConfig = FrontendConfig()):
     """A one-keyframe map of frame 0, built as ``bench.py`` builds its map:
     corners of frame 0 back-projected onto the z=0 plane through the
-    ground-truth pose. The corners come from the frame's FAST corner mask
-    (the Shi-Tomasi candidate lists arrive with slice 2): at most
-    ``per_level`` per level, drawn with a seeded numpy generator among the
-    corners at least ``border`` px from the level's edge.
+    ground-truth pose. The corners come from the frame's FAST corner mask:
+    at most ``per_level`` per level, drawn with a seeded numpy generator
+    among the corners at least ``border`` px from the level's edge.
 
     Returns (map, frame-0 TrackFeatures); the features' ``sbi_track`` is
     the previous SBI for tracking frame 1.
@@ -190,3 +191,65 @@ def planar_map_scene(seq: SyntheticSequence, max_points: int = 2048,
     m.point_down_nc, m.point_normal_nc = d_nc, nrm
     m.good = torch.ones((), dtype=torch.bool, device=dev)
     return ms.refresh_pixel_vectors(m), ff0
+
+
+def _plane_points(seq: SyntheticSequence, pose: SE3, ctr: Tensor,
+                  lv: Tensor):
+    """Back-project level coords ``ctr`` at levels ``lv`` through ``pose``
+    onto the z=0 plane. Returns (points, mask of rays that hit it)."""
+    T_wc = se3lib.inv(pose)
+    z1 = atan.unproject(levelops.level_zero_pos(ctr, lv), seq.cam)
+    dir_w = torch.cat([z1, torch.ones_like(z1[:, :1])], -1) @ T_wc.R.T
+    s = -T_wc.t[2] / dir_w[:, 2]
+    return T_wc.t + s[:, None] * dir_w, s > 0
+
+
+def candidate_map_scene(seq: SyntheticSequence, max_points: int = 2048,
+                        max_kfs: int = 4, candidate_min_score: float = 50.0):
+    """A one-keyframe map of frame 0 built as ``bench_mapping.py``'s
+    ``build_scene`` builds it: the full keyframe build of frame 0 with
+    ``candidate_min_score``, its Shi-Tomasi candidates level by level
+    back-projected onto the z=0 plane through the ground-truth pose until
+    ``max_points`` are taken, and a root measurement of every point in
+    keyframe 0.
+
+    Returns (map, frame-0 FrameFeatures).
+    """
+    W, H = seq.image_size
+    dev = seq.texture.device
+    ff0 = kflib.build_frame(seq.frame(0),
+                            candidate_min_score=candidate_min_score)
+    pose0 = seq.pose(0)
+    ctr, lv = [], []
+    for lev in range(LEVELS):
+        xy = ff0.cand_xy[lev][ff0.cand_valid[lev]]
+        ctr.append(xy.to(torch.float32))
+        lv.append(torch.full((xy.shape[0],), lev, dtype=torch.int64,
+                             device=dev))
+    ctr, lv = torch.cat(ctr), torch.cat(lv)
+    pts, hit = _plane_points(seq, pose0, ctr, lv)
+    keep = torch.nonzero(hit)[:max_points, 0]
+    pts, ctr, lv = pts[keep], ctr[keep], lv[keep]
+    n = pts.shape[0]
+
+    m = ms.empty_map((W, H), max_points=max_points, max_kfs=max_kfs,
+                     device=dev)
+    ms.insert_keyframe(m, 0, ff0, pose0, 1.5, 0.1)
+    m.point_pos[:n] = pts
+    m.point_valid[:n] = True
+    m.point_src_level[:n] = lv.to(torch.int32)
+    m.point_center[:n] = ctr
+    c_nc, r_nc, d_nc, nrm = ms.make_point_rays(
+        m.point_center, m.point_src_level.long(), seq.cam)
+    m.point_center_nc, m.point_right_nc = c_nc, r_nc
+    m.point_down_nc, m.point_normal_nc = d_nc, nrm
+    m.good = torch.ones((), dtype=torch.bool, device=dev)
+    m = ms.refresh_pixel_vectors(m)
+    P = max_points
+    root = levelops.level_zero_pos(m.point_center, m.point_src_level.long())
+    m = ms.set_measurements(
+        m, 0, torch.arange(P, device=dev), root, m.point_src_level,
+        torch.ones(P, dtype=torch.bool, device=dev),
+        torch.full((P,), ms.SRC_ROOT, dtype=torch.int32, device=dev),
+        m.point_valid)
+    return m, ff0

@@ -17,6 +17,7 @@ building at once never load a half-written file. ``nvcc`` is looked up under
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -73,6 +74,13 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     _LOADED[name] = (lib, seconds, log)
     return lib
+
+
+def load_all(names) -> None:
+    """Build and load several sources at once, one nvcc process each."""
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        for done in [pool.submit(load, name) for name in names]:
+            done.result()
 
 
 def build_info(name: str):

@@ -74,11 +74,6 @@ def _lib():
     return fn
 
 
-def build() -> None:
-    """Build and load the kernel now (otherwise it happens at first use)."""
-    _lib()
-
-
 def fast_score_map(im: Tensor, threshold: float):
     """FAST-10 corner mask and score of one (H, W) float32 image."""
     if im.device.type == "cpu":

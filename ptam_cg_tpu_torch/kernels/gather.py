@@ -49,11 +49,6 @@ def _entry(name: str):
     return fn
 
 
-def build() -> None:
-    """Build and load the kernel now (otherwise it happens at first use)."""
-    _entry("gather_windows_f32")
-
-
 _ENTRIES = {torch.float32: "gather_windows_f32",
             torch.uint8: "gather_windows_u8",
             torch.bool: "gather_windows_u8"}

@@ -1,21 +1,32 @@
-"""Per-frame tracking build (port of ``ptam_cg_tpu.models.keyframe``: the
-MakeKeyFrame_Lite half). The keyframe-only half (non-max corners,
-Shi-Tomasi candidates) comes with slice 2.
+"""Frame builds (port of ``ptam_cg_tpu.models.keyframe``).
+
+``build_frame_tracking`` is the per-frame build the tracker reads
+(MakeKeyFrame_Lite: pyramid atlas, FAST corner mask, SBIs).
+``build_frame`` is the full keyframe build: the same, plus per level the
+3x3 non-max corner list and the Shi-Tomasi candidate list
+(MakeKeyFrame_Rest). FAST runs through kernel K1 and Shi-Tomasi through
+kernel K3, one launch per level each.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import torch
 
-from ptam_cg_tpu.config import LEVELS, FrontendConfig
+from ptam_cg_tpu.config import (LEVELS, MAX_CANDIDATES, MAX_NONMAX_CORNERS,
+                                FrontendConfig)
 from ptam_cg_tpu_torch.ops import fast as fastops
 from ptam_cg_tpu_torch.ops import image as imops
 from ptam_cg_tpu_torch.ops import levels as levelops
 from ptam_cg_tpu_torch.ops import sbi as sbiops
 
 Tensor = torch.Tensor
+
+#: Uniform per-level capacity of the non-max corner lists.
+NONMAX_CAP = max(MAX_NONMAX_CORNERS)
+CAND_CAP = MAX_CANDIDATES
 
 
 @dataclasses.dataclass
@@ -24,6 +35,23 @@ class TrackFeatures:
 
     atlas: Tensor            # (Ha, W) float32 packed pyramid
     corner_mask: Tensor      # (Ha, W) bool raw FAST corners, all levels
+    sbi: sbiops.SBI          # relocalizer SBI (blur 2.5)
+    sbi_track: sbiops.SBI    # rotation-estimator SBI (blur 0.75)
+
+
+@dataclasses.dataclass
+class FrameFeatures:
+    """A keyframe's full build: ``TrackFeatures`` plus the lists."""
+
+    atlas: Tensor            # (Ha, W) float32 packed pyramid
+    corner_mask: Tensor      # (Ha, W) bool raw FAST corners, all levels
+    corner_count: Tensor     # (LEVELS,) int32
+    max_xy: Tensor           # (LEVELS, NONMAX_CAP, 2) int32 level coords
+    max_score: Tensor        # (LEVELS, NONMAX_CAP) float32 FAST score
+    max_valid: Tensor        # (LEVELS, NONMAX_CAP) bool
+    cand_xy: Tensor          # (LEVELS, CAND_CAP, 2) int32 level coords
+    cand_score: Tensor       # (LEVELS, CAND_CAP) float32 Shi-Tomasi
+    cand_valid: Tensor       # (LEVELS, CAND_CAP) bool
     sbi: sbiops.SBI          # relocalizer SBI (blur 2.5)
     sbi_track: sbiops.SBI    # rotation-estimator SBI (blur 0.75)
 
@@ -42,6 +70,51 @@ def make_frame_lite(im: Tensor, cfg: FrontendConfig = FrontendConfig()):
     corner_mask = levelops.pack_atlas(masks)
     counts = torch.stack([torch.sum(m.to(torch.int32)) for m in masks])
     return pyramid, atlas, corner_mask, tuple(scores), counts
+
+
+def make_frame_rest(pyramid: Tuple[Tensor, ...], scores: Tuple[Tensor, ...],
+                    candidate_min_score: float = 400.0,
+                    sbi_blur: float = 2.5):
+    """Per level: the non-max corner list, and the candidates (non-max
+    corners at least 10 px inside a level larger than 20x20, Shi-Tomasi
+    score above ``candidate_min_score``; kernel K3); then the SBI.
+    Returns ((max_xy, max_score, max_valid), (cand_xy, cand_score,
+    cand_valid), SBI), the lists stacked over levels."""
+    maxes, cands = [], []
+    for lev in range(LEVELS):
+        keep = fastops.nonmax_3x3(scores[lev])
+        maxes.append(fastops.corners_from_mask(keep, scores[lev], NONMAX_CAP,
+                                               tile=2))
+        st = imops.shi_tomasi_score_map(pyramid[lev], half_box=3)
+        hl, wl = pyramid[lev].shape
+        border = torch.zeros((hl, wl), dtype=torch.bool, device=st.device)
+        if hl > 20 and wl > 20:
+            border[10:-10, 10:-10] = True
+        cand_mask = keep & border & (st > candidate_min_score)
+        cands.append(fastops.corners_from_mask(cand_mask, st, CAND_CAP,
+                                               tile=2))
+
+    def stack(lists):
+        return tuple(torch.stack([getattr(c, f) for c in lists])
+                     for f in ("xy", "score", "valid"))
+
+    return stack(maxes), stack(cands), sbiops.make_sbi(pyramid[3], sbi_blur)
+
+
+def build_frame(im: Tensor, cfg: FrontendConfig = FrontendConfig(),
+                candidate_min_score: float = 400.0, sbi_blur: float = 2.5,
+                track_blur: float = 0.75) -> FrameFeatures:
+    """Full keyframe build of one (H, W) float32 frame (Lite + Rest)."""
+    if cfg.atlas_bf16:
+        raise NotImplementedError("FrontendConfig.atlas_bf16 is not ported")
+    pyramid, atlas, corner_mask, scores, counts = make_frame_lite(im, cfg)
+    (mx, ms, mv), (cx, cs, cv), the_sbi = make_frame_rest(
+        pyramid, scores, candidate_min_score, sbi_blur)
+    return FrameFeatures(
+        atlas=atlas, corner_mask=corner_mask, corner_count=counts,
+        max_xy=mx, max_score=ms, max_valid=mv,
+        cand_xy=cx, cand_score=cs, cand_valid=cv, sbi=the_sbi,
+        sbi_track=sbiops.make_sbi(pyramid[3], track_blur))
 
 
 def build_frame_tracking(im: Tensor, cfg: FrontendConfig = FrontendConfig(),

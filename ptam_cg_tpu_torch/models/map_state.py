@@ -3,7 +3,14 @@ of ``ptam_cg_tpu.models.map_state``).
 
 Fields, shapes and dtypes match the JAX package's MapState one for one.
 ``insert_keyframe`` writes in place (the keyframe atlases are the map's
-largest buffers); the other functions return new tensors.
+largest buffers), so a caller that needs the map as it was copies it
+first (``copy_map``); the other functions return new tensors for the
+fields they change.
+
+Where the JAX package scatters with ``.at[idx].set(..., mode="drop")``,
+the port scatters into a buffer one row longer and drops that row: the
+dropped entries all carry the index past the end, so no host read is
+needed to select the kept ones.
 """
 
 from __future__ import annotations
@@ -13,16 +20,21 @@ from typing import Tuple
 
 import torch
 
-from ptam_cg_tpu.config import LEVELS, MAX_CANDIDATES, MAX_NONMAX_CORNERS
+from ptam_cg_tpu.config import LEVELS
 from ptam_cg_tpu_torch.camera import atan
-from ptam_cg_tpu_torch.models.keyframe import TrackFeatures
+from ptam_cg_tpu_torch.models.keyframe import (CAND_CAP, NONMAX_CAP,
+                                               FrameFeatures, TrackFeatures)
 from ptam_cg_tpu_torch.ops import levels as levelops
 from ptam_cg_tpu_torch.utils.se3 import SE3
 
 Tensor = torch.Tensor
 
-NONMAX_CAP = max(MAX_NONMAX_CORNERS)
-CAND_CAP = MAX_CANDIDATES
+# Measurement source enum (ref: include/KeyFrame.h:50).
+SRC_TRACKER = 0
+SRC_REFIND = 1
+SRC_ROOT = 2
+SRC_TRAIL = 3
+SRC_EPIPOLAR = 4
 
 
 @dataclasses.dataclass
@@ -49,11 +61,11 @@ class MapState:
     kf_fixed: Tensor           # (K,) bool
     kf_atlas: Tensor           # (K, Ha, W) float32
     kf_corner_mask: Tensor     # (K, Ha, W) bool
-    kf_max_xy: Tensor          # (K, LEVELS, NONMAX_CAP, 2) int32 (slice 2)
-    kf_max_valid: Tensor       # (K, LEVELS, NONMAX_CAP) bool (slice 2)
-    kf_cand_xy: Tensor         # (K, LEVELS, CAND_CAP, 2) int32 (slice 2)
-    kf_cand_score: Tensor      # (K, LEVELS, CAND_CAP) float32 (slice 2)
-    kf_cand_valid: Tensor      # (K, LEVELS, CAND_CAP) bool (slice 2)
+    kf_max_xy: Tensor          # (K, LEVELS, NONMAX_CAP, 2) int32
+    kf_max_valid: Tensor       # (K, LEVELS, NONMAX_CAP) bool
+    kf_cand_xy: Tensor         # (K, LEVELS, CAND_CAP, 2) int32
+    kf_cand_score: Tensor      # (K, LEVELS, CAND_CAP) float32
+    kf_cand_valid: Tensor      # (K, LEVELS, CAND_CAP) bool
     kf_sbi: Tensor             # (K, h_sbi, w_sbi)
     kf_sbi_jac: Tensor         # (K, h_sbi, w_sbi, 2)
     kf_depth_mean: Tensor      # (K,)
@@ -106,23 +118,100 @@ def empty_map(image_size: Tuple[int, int], max_points: int = 2048,
         good=z((), b))
 
 
-def insert_keyframe(m: MapState, slot: int, features: TrackFeatures,
-                    pose: SE3, depth_mean: float = 1.0,
-                    depth_sigma: float = 1.0, fixed: bool = False) -> MapState:
+def copy_map(m: MapState) -> MapState:
+    """A copy of ``m`` that shares no storage with it."""
+    return dataclasses.replace(m, **{
+        f.name: getattr(m, f.name).clone() for f in dataclasses.fields(m)})
+
+
+def kf_row(table: Tensor, k) -> Tensor:
+    """``table[k]`` for keyframe ``k``, an int or a 0-dim tensor. A tensor
+    is used as a one-element index: indexing with a 0-dim tensor reads it
+    on the host, which waits for the device."""
+    return table[k.reshape(1)][0] if isinstance(k, Tensor) else table[k]
+
+
+def set_kf_row(table: Tensor, k, value) -> None:
+    """``table[k] = value`` in place, ``k`` as in ``kf_row``."""
+    if isinstance(k, Tensor):
+        k = k.reshape(1)
+        if not isinstance(value, Tensor):   # a Python scalar: no copy
+            value = torch.full((), value, dtype=table.dtype,
+                               device=table.device)
+    table[k] = value
+
+
+def insert_keyframe(m: MapState, slot, features, pose: SE3,
+                    depth_mean=1.0, depth_sigma=1.0,
+                    fixed: bool = False) -> MapState:
     """Write a frame's pose, atlas, corner mask, SBI and depth into
-    keyframe ``slot``, in place; returns ``m``. The non-max corner and
-    candidate lists keep their zeros until slice 2 ports them."""
-    m.kf_R[slot] = pose.R
-    m.kf_t[slot] = pose.t
-    m.kf_valid[slot] = True
-    m.kf_fixed[slot] = fixed
-    m.kf_atlas[slot] = features.atlas
-    m.kf_corner_mask[slot] = features.corner_mask
-    m.kf_sbi[slot] = features.sbi.template
-    m.kf_sbi_jac[slot] = features.sbi.jac
-    m.kf_depth_mean[slot] = depth_mean
-    m.kf_depth_sigma[slot] = depth_sigma
+    keyframe ``slot`` (an int or a 0-dim tensor), in place; returns ``m``.
+    A ``FrameFeatures`` also writes its non-max and candidate lists; the
+    slim ``TrackFeatures`` leaves the slot's lists as they are."""
+    rows = [(m.kf_R, pose.R), (m.kf_t, pose.t), (m.kf_valid, True),
+            (m.kf_fixed, fixed), (m.kf_atlas, features.atlas),
+            (m.kf_corner_mask, features.corner_mask)]
+    if isinstance(features, FrameFeatures):
+        rows += [(m.kf_max_xy, features.max_xy),
+                 (m.kf_max_valid, features.max_valid),
+                 (m.kf_cand_xy, features.cand_xy),
+                 (m.kf_cand_score, features.cand_score),
+                 (m.kf_cand_valid, features.cand_valid)]
+    elif not isinstance(features, TrackFeatures):
+        raise TypeError(f"insert_keyframe: unexpected {type(features)}")
+    rows += [(m.kf_sbi, features.sbi.template),
+             (m.kf_sbi_jac, features.sbi.jac),
+             (m.kf_depth_mean, depth_mean), (m.kf_depth_sigma, depth_sigma)]
+    for table, value in rows:
+        set_kf_row(table, slot, value)
     return m
+
+
+def scatter_drop(table: Tensor, idx: Tensor, values) -> Tensor:
+    """A copy of ``table`` with ``table[idx[i]] = values[i]``; an index
+    equal to ``len(table)`` writes nothing (``.at[idx].set(values,
+    mode="drop")``). Kept indices must be unique."""
+    buf = torch.cat([table, table[:1]])
+    if isinstance(values, Tensor):
+        values = values.to(table.dtype)
+    else:   # a Python scalar: a fill on the device, no host copy
+        values = torch.full(idx.shape, values, dtype=table.dtype,
+                            device=table.device)
+    buf[idx] = values
+    return buf[:-1]
+
+
+def set_measurements(m: MapState, kf, point_idx: Tensor, pos: Tensor,
+                     level: Tensor, subpix: Tensor, source: Tensor,
+                     valid: Tensor) -> MapState:
+    """Write a batch of measurements into keyframe ``kf``'s dense row;
+    only entries with ``valid`` and an index in range are written (their
+    indices are unique)."""
+    P = m.point_pos.shape[0]
+    ok = valid & (point_idx >= 0) & (point_idx < P)
+    idx = torch.where(ok, point_idx, P).long()
+
+    def wr(table, values):
+        out = table.clone()
+        set_kf_row(out, kf, scatter_drop(kf_row(table, kf), idx, values))
+        return out
+
+    return dataclasses.replace(
+        m, meas_valid=wr(m.meas_valid, True), meas_pos=wr(m.meas_pos, pos),
+        meas_level=wr(m.meas_level, level),
+        meas_subpix=wr(m.meas_subpix, subpix),
+        meas_source=wr(m.meas_source, source))
+
+
+def scene_depth_for_kf(m: MapState, k):
+    """Mean and standard deviation of the depths of keyframe ``k``'s
+    measured points (RefreshSceneDepth). Returns (mean, sigma)."""
+    sel = kf_row(m.meas_valid, k) & m.point_valid
+    z = (m.point_pos @ kf_row(m.kf_R, k).T + kf_row(m.kf_t, k))[:, 2]
+    n = torch.clamp(torch.sum(sel.to(torch.float32)), min=1.0)
+    mean = torch.sum(torch.where(sel, z, 0.0)) / n
+    var = torch.sum(torch.where(sel, z * z, 0.0)) / n - mean * mean
+    return mean, torch.sqrt(torch.clamp(var, min=1e-12))
 
 
 def make_point_rays(center_level_xy: Tensor, level: Tensor, cam: atan.Camera):
@@ -175,3 +264,12 @@ def closest_kf_distances(m: MapState, pose: SE3) -> Tensor:
     centers = -(m.kf_R.transpose(-1, -2) @ m.kf_t[..., None])[..., 0]
     d = torch.linalg.vector_norm(centers - c, dim=-1)
     return torch.where(m.kf_valid, d, float("inf"))
+
+
+def kf_linear_dist(m: MapState, pose: SE3, depth_mean, k) -> Tensor:
+    """Camera-centre distance from ``pose`` to keyframe ``k``
+    (KeyFrameLinearDist; ``depth_mean`` is unused, as in the JAX package,
+    where the caller divides by scene depth)."""
+    c1 = -(pose.R.T @ pose.t)
+    c2 = -(kf_row(m.kf_R, k).T @ kf_row(m.kf_t, k))
+    return torch.linalg.vector_norm(c1 - c2)

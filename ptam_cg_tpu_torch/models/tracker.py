@@ -200,8 +200,9 @@ def _search_subset(m: MapState, frame: TrackFeatures, pose: SE3,
     subpix_done = torch.zeros_like(found)
     step = torch.zeros_like(res.ssd)
     if subpix_its > 0:
-        ref = patchops.subpix_refine(templates, res.pos, bounds, win,
-                                     win_origin, max_its=subpix_its)
+        ref = patchops.subpix_refine(frame.atlas, templates, res.pos, bounds,
+                                     max_its=subpix_its, windows=win,
+                                     win_origin=win_origin)
         use = found & (level == LEVELS - 1) if subpix_level3_only else found
         found = torch.where(use, found & ref.converged, found)
         pos_atlas = torch.where(use[:, None], ref.pos, pos_atlas)

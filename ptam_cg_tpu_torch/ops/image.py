@@ -1,6 +1,12 @@
-"""Dense image ops: pyramid and Gaussian blur (port of
-``ptam_cg_tpu.ops.image``; Shi-Tomasi and the patch helpers come with
-slice 2). Images are float32 (..., H, W) with intensities in [0, 255].
+"""Dense image ops: pyramid, Gaussian blur, gradients, box sums and the
+Shi-Tomasi score map (port of ``ptam_cg_tpu.ops.image``). Images are
+float32 (..., H, W) with intensities in [0, 255].
+
+``box_sum`` and the Shi-Tomasi score live beside their Hopper kernel (K3)
+in ``kernels/shi_tomasi.py``: ``shi_tomasi_score_map`` runs the kernel on
+a CUDA tensor and the plain version on a CPU tensor. Both sum the box in
+the order of the banded TPU kernel, which differs from the JAX package's
+cumsum form by float rounding only.
 """
 
 from __future__ import annotations
@@ -10,6 +16,9 @@ import math
 
 import numpy as np
 import torch
+
+from ptam_cg_tpu_torch.kernels.shi_tomasi import (  # noqa: F401
+    box_sum, shi_tomasi_score_map, shi_tomasi_score_map_plain)
 
 Tensor = torch.Tensor
 

@@ -9,7 +9,8 @@
 3. ``ssd_search``: dense windowed ZMSSD over (2r+1)^2 candidates from one
    image window and one corner-mask window per point (both K2).
 4. ``subpix_refine``: inverse-composition refinement on the search
-   windows, re-based with a direct indexed load (the JAX package uses a
+   windows, or on windows it gathers from the atlas (K2), re-based with a
+   direct indexed load (the JAX package uses a
    one-hot blend), in a masked loop of fixed count; settled points take
    no further updates, so this equals the JAX early exit exactly.
 
@@ -252,17 +253,33 @@ class SubPixResult:
     last_step: Tensor  # (N,) squared step of each point's last update
 
 
-def subpix_refine(templates: Tensor, pos0: Tensor, bounds: Tensor,
-                  windows: Tensor, win_origin: Tensor, *, max_its: int = 10,
-                  conv_limit: float = 0.03,
-                  patch_size: int = PATCH_SIZE) -> SubPixResult:
+MARGIN = 3      # subpixel excursion allowed in a gathered window (px)
+
+
+def subpix_refine(atlas: Tensor, templates: Tensor, pos0: Tensor,
+                  bounds: Tensor, *, max_its: int = 10,
+                  conv_limit: float = 0.03, patch_size: int = PATCH_SIZE,
+                  windows: Tensor | None = None,
+                  win_origin: Tensor | None = None) -> SubPixResult:
     """Batched inverse-composition alignment (3 DoF: x, y, mean
-    difference) on windows the caller already gathered (the ZMSSD search
-    windows, which contain the best candidate). All patch pixels share one
-    bilinear fraction, as in the reference."""
+    difference) of templates (N, P, P) against ``atlas`` from atlas
+    positions ``pos0`` (N, 2). It reads ``windows`` (N, D, D) at
+    ``win_origin`` (N, 2) (x, y) where the caller gathered them (the ZMSSD
+    search windows, which contain the best candidate); otherwise it
+    gathers one (P + 2*MARGIN + 1)^2 window per point around the rounded
+    start (kernel K2). All patch pixels share one bilinear fraction, as
+    in the reference."""
     N = templates.shape[0]
     P = patch_size
     ph = P // 2
+    if windows is None:
+        Ha, Wa = atlas.shape
+        D = P + 2 * MARGIN + 1
+        c0 = torch.round(pos0).to(torch.int64)
+        org_x = torch.clamp(c0[:, 0] - ph - MARGIN, 0, Wa - D)
+        org_y = torch.clamp(c0[:, 1] - ph - MARGIN, 0, Ha - D)
+        windows = gather_windows(atlas, torch.stack([org_y, org_x], -1), D)
+        win_origin = torch.stack([org_x, org_y], -1).to(torch.float32)
     Q = P - 2
     dev = templates.device
 

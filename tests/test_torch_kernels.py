@@ -1,8 +1,10 @@
-"""K1 (FAST-10) and K2 (window gather): plain versions against the JAX
-package, and kernels against plain versions on the card.
+"""K1 (FAST-10), K2 (window gather) and K3 (Shi-Tomasi): plain versions
+against the JAX package, and kernels against plain versions on the card
+(K3's plain version is held to the JAX package in test_torch_keyframe.py).
 
 Bars: bit-identical everywhere. FAST uses only f32 add, subtract, min and
-max; the gather is a copy. The card tests carry the ``cuda`` marker and
+max; the gather is a copy; K3 rounds every operation on its own in the
+plain version's order. The card tests carry the ``cuda`` marker and
 skip without a GPU. The card's machine has no JAX, so the JAX references
 load through the ``jax_ref`` fixture and the card tests run there with
 ``python -m pytest tests/test_torch_kernels.py -m cuda --noconftest``.
@@ -16,12 +18,15 @@ import torch
 
 from ptam_cg_tpu_torch.kernels import fast as kfast
 from ptam_cg_tpu_torch.kernels import gather as kgather
+from ptam_cg_tpu_torch.kernels import shi_tomasi as kshi
 
 torch.set_num_threads(2)
 
 #: The window sides on the tracking path: search windows 40 (coarse) and
-#: 30 (fine), corner-mask windows 33 and 23, template windows 28.
-PATH_WINDOWS = (23, 28, 30, 33, 40)
+#: 30 (fine), corner-mask windows 33 and 23, template windows 28; on the
+#: keyframe path: epipolar patches 8, re-find corner-mask windows 9,
+#: sub-pixel windows 15 and re-find search windows 16.
+PATH_WINDOWS = (8, 9, 15, 16, 23, 28, 30, 33, 40)
 
 
 @pytest.fixture(scope="module")
@@ -133,3 +138,21 @@ def test_gather_kernel_matches_plain_on_card(cuda, D):
         assert kgather.launches == before + 1
         torch.testing.assert_close(got, kgather.gather_windows_plain(
             a, origins, D), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_shi_tomasi_kernel_matches_plain_on_card(cuda):
+    """The four pyramid levels of a 640x480 image, and shapes that are
+    no multiple of the kernel's 32x8 tile."""
+    from ptam_cg_tpu_torch.ops import image as imops
+    r = np.random.default_rng(1)
+    im = torch.tensor(r.uniform(0, 255, (480, 640)), dtype=torch.float32,
+                      device=cuda)
+    extra = [torch.tensor(r.uniform(0, 255, s), dtype=torch.float32,
+                          device=cuda) for s in ((37, 53), (9, 9), (61, 200))]
+    for lev in list(imops.build_pyramid(im, 4)) + extra:
+        before = kshi.launches
+        got = kshi.shi_tomasi_score_map(lev)
+        assert kshi.launches == before + 1
+        torch.testing.assert_close(got, kshi.shi_tomasi_score_map_plain(lev),
+                                   rtol=0, atol=0)

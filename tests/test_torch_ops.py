@@ -17,7 +17,10 @@ Tolerances and why:
 - ZMSSD scores: 4.0 absolute. Each score is a difference of terms up to
   64 * 255^2 ~ 4e6, where one float32 ulp is 0.5, and the integral-image
   sums run in another order. Best candidates and found flags identical;
-  subpixel positions 1e-4 px.
+  subpixel positions 1e-4 px;
+- triangulation: 1e-3 in position at depth ~1.5: the JAX package's
+  float32 eigh of AᵀA carries ~2e-4 of noise at the keyframe path's
+  baseline.
 """
 
 import jax
@@ -150,6 +153,63 @@ def test_spd_solve_matches_jax(n):
     close(tgeometry.spd_solve(T(A), T(b)),
           geometry.spd_solve(jnp.asarray(A), jnp.asarray(b)), rtol=1e-5,
           atol=1e-6)
+
+
+def test_sym4_eigh_solves_degenerate_matrices():
+    """The Jacobi eigen-solve behind ``triangulate`` on random symmetric
+    4x4 matrices and on rank-deficient ones (a zero column, two equal
+    rows: the no-baseline DLT): eigenvalues within 1e-6 of the largest,
+    and V^T M V diagonal to the same level."""
+    A = rng(12).normal(size=(500, 4, 4)).astype(np.float32)
+    A[:20, :, 3] = 0.0
+    A[20:40, 2] = A[20:40, 0]
+    M = np.einsum("nmi,nmj->nij", A, A)
+    vals, V = tgeometry.sym4_eigh(T(M))
+    ref = np.linalg.eigvalsh(M.astype(np.float64))
+    scale = np.abs(ref).max(-1, keepdims=True)
+    assert np.abs(np.sort(vals.numpy(), -1) - ref).max() <= 1e-6 * scale.max()
+    D = (V.transpose(-1, -2) @ T(M) @ V).numpy()
+    off = np.abs(D - D * np.eye(4)).max((-1, -2))
+    assert (off <= 1e-6 * scale[:, 0]).all()
+    np.testing.assert_allclose(
+        (V.transpose(-1, -2) @ V).numpy(), np.broadcast_to(np.eye(4), M.shape),
+        atol=1e-6)
+
+
+def test_triangulate_matches_jax():
+    """Seeded points 1.2-1.8 deep seen from two views 0.1 apart, the
+    baseline of the keyframe path. Against a float64 solve of the same
+    system the JAX package's float32 eigh of AᵀA errs by up to ~2e-4 in
+    position and the port's float32 Jacobi solve by ~3e-5, so the bars
+    are 1e-3 against JAX and 1e-4 against float64. Rays to a point at
+    infinity take the |w| clamp and stay finite."""
+    r = rng(9)
+    N = 256
+    pts = np.stack([r.uniform(-0.6, 0.6, N), r.uniform(-0.5, 0.5, N),
+                    r.uniform(1.2, 1.8, N)], -1)
+    pts[-4:] = pts[-4:] * 1e9                     # at infinity
+    xi = jnp.array([0.1, 0.01, 0.003, 0.01, -0.05, 0.005], jnp.float32)
+    a_from_b = jax.jit(se3.se3_exp)(xi)
+    R = np.asarray(a_from_b.R, np.float64)
+    t = np.asarray(a_from_b.t, np.float64)
+    pa = pts @ R.T + t
+    v2a = (pa[:, :2] / pa[:, 2:]).astype(np.float32)
+    v2b = (pts[:, :2] / pts[:, 2:]).astype(np.float32)
+    got = tgeometry.triangulate(fj.se3_from_numpy(fj.as_numpy_tree(a_from_b)),
+                                T(v2a), T(v2b)).numpy()
+    ref = jax.jit(geometry.triangulate)(a_from_b, jnp.asarray(v2a),
+                                        jnp.asarray(v2b))
+    assert np.isfinite(got).all()
+    close(T(got[:-4]), np.asarray(ref)[:-4], atol=1e-3)
+    # The float64 DLT solve of the same float32 system.
+    PD = np.concatenate([R, t[:, None]], 1)
+    A = np.zeros((N, 4, 4))
+    A[:, 0, 0] = A[:, 1, 1] = -1.0
+    A[:, 0, 2], A[:, 1, 2] = v2b[:, 0], v2b[:, 1]
+    A[:, 2] = v2a[:, :1] * PD[2] - PD[0]
+    A[:, 3] = v2a[:, 1:] * PD[2] - PD[1]
+    v4 = np.linalg.eigh(np.einsum("nmi,nmj->nij", A, A))[1][..., 0]
+    close(T(got[:-4]), (v4[:, :3] / v4[:, 3:])[:-4], atol=1e-4)
 
 
 # ---------------------------------------------------------------- camera
@@ -355,8 +415,39 @@ def test_ssd_search_and_subpix_match_jax(texture, r_win):
     close(res.ssd, res_ref.ssd, rtol=0, atol=4.0)
     assert int(res.found.sum()) > 20
 
-    sp = tpatchops.subpix_refine(T(tm), res.pos, T(bounds), win, origin,
-                                 max_its=8)
+    sp = tpatchops.subpix_refine(T(im), T(tm), res.pos, T(bounds), max_its=8,
+                                 windows=win, win_origin=origin)
     close(sp.converged, sp_ref.converged, atol=0)
     close(sp.pos, sp_ref.pos, atol=1e-4)
     assert int(sp.converged.sum()) > 20
+
+
+def test_subpix_refine_atlas_path_matches_jax(texture):
+    """Without windows, ``subpix_refine`` gathers a 15x15 window (K2)
+    around each rounded start, as epipolar growth calls it; starts at
+    integer positions up to 1 px off the truth, and two near the edges
+    where the window is clamped."""
+    im, _, tm, _, _, bounds = _search_inputs(texture, 11, 21)
+    r = rng(22)
+    N = tm.shape[0]
+    true = np.stack([r.integers(20, 140, N), r.integers(20, 100, N)], -1)
+    shift = r.uniform(-0.4, 0.4, (N, 2)).astype(np.float32)
+    ys, xs = np.mgrid[0:8, 0:8]
+    for n in range(N):
+        x = true[n, 0] + shift[n, 0] + xs - 4
+        y = true[n, 1] + shift[n, 1] + ys - 4
+        x0, y0 = np.floor(x).astype(int), np.floor(y).astype(int)
+        fx, fy = x - x0, y - y0
+        tm[n] = (im[y0, x0] * (1 - fx) * (1 - fy) + im[y0, x0 + 1] * fx
+                 * (1 - fy) + im[y0 + 1, x0] * (1 - fx) * fy
+                 + im[y0 + 1, x0 + 1] * fx * fy)
+    pos0 = (true + r.integers(-1, 2, (N, 2))).astype(np.float32)
+    pos0[:2] = [[2.0, 3.0], [158.0, 118.0]]
+    sp = tpatchops.subpix_refine(T(im), T(tm), T(pos0), T(bounds), max_its=10)
+    sp_ref = jax.jit(lambda *a: patchops.subpix_refine(*a, max_its=10))(
+        jnp.asarray(im), jnp.asarray(tm), jnp.asarray(pos0),
+        jnp.asarray(bounds))
+    close(sp.converged, sp_ref.converged, atol=0)
+    close(sp.pos, sp_ref.pos, atol=1e-4)
+    assert int(sp.converged.sum()) > N // 2
+    assert not bool(sp.converged[:2].any())
