@@ -7,16 +7,25 @@ Phases, each fatal on failure:
 1. device: the card's name and power limit; build the three CUDA kernels
    (``ptam_cg_tpu_torch/csrc``) with nvcc for sm_90a, one nvcc each, all
    at once;
-2. K1 (FAST-10) against its plain PyTorch version on the 4 pyramid levels
-   of a 640x480 frame: bit-identical; both timed;
-2b. K3 (Shi-Tomasi) the same way: bit-identical; both timed, with device
-   times from torch.profiler;
+2. K1 (FAST-10) against its plain PyTorch version over the pyramid atlas
+   of a 640x480 frame, in one launch: mask atlas, scores and per-level
+   counts bit-identical, with and without the scores;
+2b. K3 (Shi-Tomasi) on the 4 pyramid levels: bit-identical;
 3. K2 (window gather) against its plain version at the window shapes of
-   the tracking and keyframe paths, f32 and bool: bit-identical; timed;
+   the tracking and keyframe paths, f32 and bool, int64 and int32 origin
+   columns, strided and contiguous, and the pair entry (image and mask
+   windows in one launch) at the three search shapes: bit-identical.
+   Phases 2-3 time every path call: CUDA events (kernel, plain version,
+   and for K2 the one PyTorch call that computes the same windows, an
+   unfolded view indexed at the origins), device time from torch.profiler,
+   and the bound (bytes over the HBM rate or float32 operations over the
+   float32 peak, the larger: K1 reads the levels' pixels, K2 the source
+   bytes under at least one window, each once), with the launches a
+   frame and a keyframe;
 4. tracking: a 2048-point planar map, then ``track_frame_from_image`` on
    frames 1..60 of the sequence. Every frame must be GOOD, within 0.02 in
    camera centre and 0.01 rad in rotation, and the kernels' launch counts
-   must equal the calls the step makes times 60;
+   must equal the calls the step makes times 60 (1 K1 and 4 K2 a frame);
 5. the same frame, uniforms and start state (with the coarse stage on)
    through the port on the card and on the CPU: the same found set up to
    differences traced to float noise (under 1% of found points), and a
@@ -27,14 +36,16 @@ Phases, each fatal on failure:
    on frame 40 with its tracker measurements; new points must lie on the
    z=0 plane (median |z| < 0.02) and frames 41..60 must track GOOD within
    the phase-4 bars against the grown map, finding some new points. The
-   launch counts of the whole phase must equal those the code makes.
+   launch counts of the whole phase must equal those the code makes
+   (the keyframe: 1 K1, 4 K3 and 14 K2).
    ``build_frame`` and the integration are timed;
 7. the integration of phase 6 on the card and on the CPU from the same
    map, features and measurements: the same re-found set and new points
    per level up to differences traced to float noise (at most 1%), new
    points within 1e-3 and measurements within 1e-3 px.
-The line before the last is a JSON summary of the kernels; the last line
-is the JSON result. Times are medians of CUDA-event timings.
+The line before the last is a JSON summary of the kernels (numbers summed
+over a tracked frame's calls, K3's over a keyframe's); the last line is
+the JSON result. Times are medians of CUDA-event timings.
 """
 
 import dataclasses
@@ -55,6 +66,14 @@ POS_TOL = 1e-3
 REPS = 25
 INT_REPS = 10
 KERNELS = ("fast10", "gather_windows", "shi_tomasi")
+# The bound of a kernel call: H100 SXM HBM rate and float32 peak outside
+# the tensor cores (NVIDIA's data sheet, at 700 W); one add, subtract,
+# compare, min, max, multiply, divide or root counts as one operation.
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+# K3's float32 operations a pixel: 2 gradients, 3 products, 3 x (6 + 6)
+# box-sum adds, 3 divides, 11 for the smaller eigenvalue.
+SHI_OPS = 55
 
 
 def fail(msg):
@@ -86,30 +105,34 @@ def time_ms(fn, torch, reps=REPS, setup=None):
     return statistics.median(times)
 
 
-def device_us(fn, torch, n=20, match=None, setup=None):
+def device_us(fn, torch, n=20, match=None, setup=None, tries=3):
     """Device time (us) and kernels per call from torch.profiler over
     ``n`` calls, counting only kernels whose name holds ``match`` if
-    given. (None, 0) when the profiler records no kernel."""
+    given. The profiler now and then records no kernel for a short run;
+    up to ``tries`` runs are made. (None, 0) when none recorded one."""
     from torch.profiler import ProfilerActivity, profile
     def arg():
         return setup() if setup else None
 
     fn(arg())
-    args = [arg() for _ in range(n)]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for a in args:
-            fn(a)
+    for _ in range(tries):
+        args = [arg() for _ in range(n)]
         torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = e.self_cuda_time_total
-        if t > 0 and (match is None or match in e.key):
-            total += t
-            count += e.count
-    return (total / n if count else None), count / n
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for a in args:
+                fn(a)
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = e.self_cuda_time_total
+            if t > 0 and (match is None or match in e.key):
+                total += t
+                count += e.count
+        if count:
+            return total / n, count / n
+    return None, 0
 
 
 def fmt_us(us):
@@ -120,13 +143,46 @@ def max_abs_diff(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
+def fast_work(pyramid, thresholds, torch):
+    """What K1's arithmetic needs on these levels: the pixels at least
+    3 px inside a level (each takes c+t, c-t, 8 compass compares and the
+    corner test: 11 operations), and the (pixel, polarity) pairs with two
+    or more compass pixels beyond the threshold (each takes 64 doubling
+    min/max, 15 more over the 16 arcs, a subtract and a max: 81)."""
+    n_inner = n_polar = 0
+    for im, t in zip(pyramid, thresholds):
+        c = im[3:-3, 3:-3]
+        H, W = c.shape
+        compass = [im[3 + dy: 3 + dy + H, 3 + dx: 3 + dx + W]
+                   for dx, dy in ((0, -3), (3, 0), (0, 3), (-3, 0))]
+        bright = sum(((r - (c + t)) > 0).int() for r in compass)
+        dark = sum((((c - t) - r) > 0).int() for r in compass)
+        n_inner += c.numel()
+        n_polar += int((bright >= 2).sum()) + int((dark >= 2).sum())
+    return n_inner, n_polar
+
+
+def covered(shape, oy, ox, D):
+    """Elements of an (H, W) source under at least one D x D window at the
+    clamped (oy, ox) origins: the bytes a gather must read, each once."""
+    import torch
+    H, W = shape
+    oy = oy.clamp(0, H - D)
+    ox = ox.clamp(0, W - D)
+    edges = torch.zeros(H + 1, W + 1, dtype=torch.int32, device=oy.device)
+    ones = torch.ones_like(oy, dtype=torch.int32)
+    for dy, dx, sign in ((0, 0, 1), (D, 0, -1), (0, D, -1), (D, D, 1)):
+        edges.index_put_((oy + dy, ox + dx), sign * ones, accumulate=True)
+    return int((edges.cumsum(0).cumsum(1)[:H, :W] > 0).sum())
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device")
     import numpy as np
 
-    from ptam_cg_tpu.config import FrontendConfig, MapMakerConfig
+    from ptam_cg_tpu_torch.config import FrontendConfig, MapMakerConfig
     from ptam_cg_tpu_torch.io import synth
     from ptam_cg_tpu_torch.kernels import _build
     from ptam_cg_tpu_torch.kernels import fast as kfast
@@ -136,6 +192,7 @@ def main():
     from ptam_cg_tpu_torch.models import map_state as ms
     from ptam_cg_tpu_torch.models import mapmaker, tracker
     from ptam_cg_tpu_torch.ops import image as imops
+    from ptam_cg_tpu_torch.ops import levels as levelops
     from ptam_cg_tpu_torch.utils import parity, se3
     from ptam_cg_tpu_torch.utils.tree import to_device
 
@@ -144,11 +201,11 @@ def main():
     dev = torch.device("cuda")
     mods = {"fast10": kfast, "gather_windows": kgather, "shi_tomasi": kshi}
 
-    def reset_counts():
+    def reset_launch_counts():
         for mod in mods.values():
             mod.launches = 0
 
-    def counts():
+    def launch_counts():
         return {name: mod.launches for name, mod in mods.items()}
 
     # ---- 1. device and build ----
@@ -170,42 +227,102 @@ def main():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
         print(f"[1] {name}: nvcc {seconds:.1f} s; {' | '.join(regs)}")
 
-    def entry(name, source, replaces):
+    def entry(name, source, replaces, per_frame, per_keyframe, library):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=0, max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+                    launches=0, max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                    bound_ms=0.0, bound_by="bytes",
+                    library_ms=0.0 if library else None, device_us=0.0,
+                    bound_us=0.0, launches_per_frame=per_frame,
+                    launches_per_keyframe=per_keyframe)
 
+    # Launches on the tracking path (per frame) and on the keyframe path
+    # (build_frame + integrate_keyframe_program); phases 4 and 6 hold the
+    # run's counts to these.
     kernels = {
         "fast10": entry("fast10", "ptam_cg_tpu_torch/csrc/fast10.cu",
-                        "ptam_cg_tpu/ops/pallas_kernels.py:241"),
+                        "ptam_cg_tpu/ops/pallas_kernels.py:241", 1, 1,
+                        False),
         "gather_windows": entry(
             "gather_windows", "ptam_cg_tpu_torch/csrc/gather_windows.cu",
-            "ptam_cg_tpu/ops/pallas_gather.py:50"),
+            "ptam_cg_tpu/ops/pallas_gather.py:50", 4, 2 + 3 * 4, True),
         "shi_tomasi": entry("shi_tomasi",
                             "ptam_cg_tpu_torch/csrc/shi_tomasi.cu",
-                            "ptam_cg_tpu/ops/pallas_kernels.py:326")}
+                            "ptam_cg_tpu/ops/pallas_kernels.py:326", 0, 4,
+                            False)}
+
+    def add_row(k, ms_k, plain, dev_k, nbytes, ops, lib=None, err=0.0):
+        """Add one path call's numbers to kernel k's summary; returns its
+        bound in us (bytes over the HBM rate, f32 operations over the f32
+        peak, the larger)."""
+        t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / F32_OPS_S
+        bound = max(t_bytes, t_ops) * 1e6
+        k["ms"] += ms_k
+        k["plain_ms"] += plain
+        if dev_k is None or k["device_us"] is None:
+            k["device_us"] = None
+        else:
+            k["device_us"] += dev_k
+        k["bound_us"] += bound
+        k["bound_ms"] = k["bound_us"] / 1e3
+        if t_ops > t_bytes:
+            k["bound_by"] = "operations"
+        if lib is not None:
+            k["library_ms"] += lib
+        k["max_abs_err"] = max(k["max_abs_err"], err)
+        return bound
+
+    def bound_text(nbytes, ops):
+        return (f"bound {max(nbytes / HBM_BYTES_S, ops / F32_OPS_S) * 1e6:.3f}"
+                f" us ({nbytes / 1e6:.3f} MB -> "
+                f"{nbytes / HBM_BYTES_S * 1e6:.3f} us, {ops / 1e6:.2f} M f32 "
+                f"ops -> {ops / F32_OPS_S * 1e6:.3f} us)")
 
     # ---- 2. K1 against its plain version ----
     seq = synth.SyntheticSequence(REF_PARAMS, image_size=SIZE,
                                   n_frames=N_FRAMES + 1, seed=7, height=1.5,
                                   radius=0.2, sweep=0.6, device=dev)
+    thresholds = FrontendConfig().fast_thresholds
     pyramid = imops.build_pyramid(seq.frame(0), 4)
-    for lev, (im, t) in enumerate(zip(pyramid,
-                                      FrontendConfig().fast_thresholds)):
-        m_k, s_k = kfast.fast_score_map(im, float(t))
-        m_p, s_p = kfast.fast_score_map_plain(im, float(t))
-        err = max(max_abs_diff(m_k, m_p), max_abs_diff(s_k, s_p))
-        check(torch.equal(m_k, m_p) and torch.equal(s_k, s_p),
-              f"K1 differs from its plain version at level {lev}: {err}")
-        ms_k = time_ms(lambda _: kfast.fast_score_map(im, float(t)), torch)
-        plain = time_ms(lambda _: kfast.fast_score_map_plain(im, float(t)),
-                        torch)
-        k = kernels["fast10"]
-        k["ms"] += ms_k
-        k["plain_ms"] += plain
-        k["max_abs_err"] = max(k["max_abs_err"], err)
-        print(f"[2] K1 level {lev} {tuple(im.shape)} t={t}: bit-identical, "
-              f"{int(m_k.sum())} corners; kernel {ms_k:.4f} ms, "
-              f"plain {plain:.4f} ms  [{card}]")
+    atlas = levelops.pack_atlas(pyramid)
+    k = kernels["fast10"]
+    ref = kfast.fast_atlas_plain(atlas, thresholds, scores=True)
+    for scores in (False, True):
+        got = kfast.fast_atlas(atlas, thresholds, scores=scores)
+        for name, g, r, want in (("mask", got[0], ref[0], True),
+                                 ("score", got[1], ref[1], scores),
+                                 ("counts", got[2], ref[2], scores)):
+            if want:
+                check(torch.equal(g, r), f"K1 {name} differs from its plain "
+                      f"version (scores={scores}): {max_abs_diff(g, r)}")
+            else:
+                check(g is None, f"K1 wrote {name} unasked")
+    n_inner, n_polar = fast_work(pyramid, thresholds, torch)
+    in_bytes = sum(im.numel() for im in pyramid) * 4     # the levels' pixels
+    print(f"[2] K1 640x480 atlas {tuple(atlas.shape)}: bit-identical (mask, "
+          f"scores, counts {ref[2].tolist()}, with and without scores); "
+          f"{n_inner} pixels inside the levels, {n_polar} polarities past "
+          f"the compass test")
+    for what, score in (("tracking (mask)", False),
+                        ("keyframe (mask, scores, counts)", True)):
+        call = (lambda _, s=score: kfast.fast_atlas(atlas, thresholds,
+                                                    scores=s))
+        plain_call = (lambda _, s=score: kfast.fast_atlas_plain(
+            atlas, thresholds, scores=s))
+        ms_k = time_ms(call, torch)
+        plain = time_ms(plain_call, torch)
+        dev_k, n_k = device_us(call, torch, match="fast10")
+        # Written: the mask atlas; with scores the score atlas and counts.
+        nbytes = in_bytes + atlas.numel() * (5 if score else 1) + (
+            16 if score else 0)
+        ops = n_inner * 11 + n_polar * 81 + (int(ref[2].sum()) if score
+                                             else 0)
+        if not score:
+            add_row(k, ms_k, plain, dev_k, nbytes, ops)
+        print(f"[2] K1 {what}: kernel {ms_k:.4f} ms, plain {plain:.4f} ms "
+              f"(CUDA events); device {fmt_us(dev_k)} in {n_k:.0f} launch; "
+              f"{bound_text(nbytes, ops)}; launches a frame "
+              f"{1 if not score else 0}, a keyframe {1 if score else 0}"
+              f"  [{card}]")
 
     # ---- 2b. K3 against its plain version ----
     k = kernels["shi_tomasi"]
@@ -222,57 +339,144 @@ def main():
                              match="shi_tomasi")
         dev_p, n_p = device_us(lambda _: kshi.shi_tomasi_score_map_plain(im),
                                torch)
-        k["ms"] += ms_k
-        k["plain_ms"] += plain
-        k["max_abs_err"] = max(k["max_abs_err"], err)
+        nbytes, ops = im.numel() * 8, im.numel() * SHI_OPS
+        add_row(k, ms_k, plain, dev_k, nbytes, ops, err=err)
         print(f"[2b] K3 level {lev} {tuple(im.shape)}: bit-identical, "
               f"{int((got > CAND_MIN).sum())} px above {CAND_MIN}; kernel "
               f"{ms_k:.4f} ms, plain {plain:.4f} ms; device: kernel "
-              f"{fmt_us(dev_k)}, plain {fmt_us(dev_p)} ({n_p:.0f} kernels)"
-              f"  [{card}]")
+              f"{fmt_us(dev_k)}, plain {fmt_us(dev_p)} ({n_p:.0f} kernels); "
+              f"{bound_text(nbytes, ops)}; launches a keyframe 1  [{card}]")
 
     # ---- 3. K2 against its plain version ----
     rng = np.random.default_rng(3)
     Ha, Wa = SIZE[1] * 3 // 2, SIZE[0]
     frame_atlas = torch.rand(Ha, Wa, device=dev) * 255
+    frame_mask = frame_atlas > 200.0
     kf_atlases = torch.rand(4 * Ha, Wa, device=dev) * 255
-    # (source, N, window side, what, the dtype the path gathers there)
-    shapes = [(kf_atlases, 128, 28, "coarse templates", "f32"),
-              (kf_atlases, 1024, 28, "fine templates", "f32"),
-              (frame_atlas, 128, 40, "coarse search window", "f32"),
-              (frame_atlas, 128, 33, "coarse corner-mask window", "bool"),
-              (frame_atlas, 1024, 30, "fine search window", "f32"),
-              (frame_atlas, 1024, 23, "fine corner-mask window", "bool"),
-              (kf_atlases, 2048, 28, "re-find templates", "f32"),
-              (frame_atlas, 2048, 16, "re-find search window", "f32"),
-              (frame_atlas, 2048, 9, "re-find corner-mask window", "bool"),
-              (kf_atlases, 512, 28, "epipolar templates", "f32"),
-              (frame_atlas, 2048, 8, "epipolar corner patches", "f32"),
-              (frame_atlas, 512, 15, "sub-pixel window", "f32")]
-    k = kernels["gather_windows"]
-    for src, n, D, what, path_dtype in shapes:
+
+    def origins(src, n, D):
         H, W = src.shape
         org = np.stack([rng.integers(-8, H - D + 8, n),
                         rng.integers(-8, W - D + 8, n)], -1)
         org[:4] = [[-3, -3], [H, W], [H - D, -1], [0, W - D + 1]]
-        org = torch.from_numpy(org.astype(np.int32)).to(dev)
+        org = torch.from_numpy(org).to(dev)        # int64, as the path
+        return org[:, 0], org[:, 1]
+
+    def library(a, oy, ox, D):
+        """One PyTorch call for the same windows: an unfolded view indexed
+        at the clamped origins (timed as a yardstick, never used)."""
+        H, W = a.shape
+        oy = oy.clamp(0, H - D)
+        ox = ox.clamp(0, W - D)
+        view = a.unfold(0, D, 1).unfold(1, D, 1)
+        return lambda _: view[oy, ox]
+
+    def win_bytes(src, oy, ox, D, es):
+        """The source bytes under the windows, read once, and the windows
+        written once."""
+        return (covered(src.shape, oy, ox, D) + oy.numel() * D * D) * es
+
+    k = kernels["gather_windows"]
+    # (source, N, window side, what, the dtype the path gathers there,
+    #  launches a frame, a keyframe)
+    singles = [(kf_atlases, 128, 28, "coarse templates", "f32", 1, 0),
+               (kf_atlases, 1024, 28, "fine templates", "f32", 1, 0),
+               (kf_atlases, 2048, 28, "re-find templates", "f32", 0, 1),
+               (kf_atlases, 512, 28, "epipolar templates", "f32", 0, 4),
+               (frame_atlas, 2048, 8, "epipolar corner patches", "f32", 0, 4),
+               (frame_atlas, 512, 15, "sub-pixel window", "f32", 0, 4)]
+    def forms(oy, ox):
+        """The origin columns as the path holds them (int64 views of one
+        (N, 2) tensor), contiguous, and int32."""
+        return ((oy, ox), (oy.contiguous(), ox.contiguous()),
+                (oy.to(torch.int32), ox.to(torch.int32)))
+
+    for src, n, D, what, path_dtype, per_frame, per_kf in singles:
+        oy, ox = origins(src, n, D)
         for dtype, a in (("f32", src), ("bool", src > 200.0)):
-            got = kgather.gather_windows(a, org, D)
-            ref = kgather.gather_windows_plain(a, org, D)
-            err = max_abs_diff(got, ref)
-            check(torch.equal(got, ref),
-                  f"K2 differs from its plain version: {what} {dtype}")
-            if dtype != path_dtype:
-                continue
-            ms_k = time_ms(lambda _: kgather.gather_windows(a, org, D), torch)
-            plain = time_ms(lambda _: kgather.gather_windows_plain(a, org, D),
-                            torch)
-            k["max_abs_err"] = max(k["max_abs_err"], err)
-            k["ms"] += ms_k
-            k["plain_ms"] += plain
-            print(f"[3] K2 {what} N={n} D={D} {dtype}: bit-identical (and "
-                  f"as the other dtype); kernel {ms_k:.4f} ms, plain "
-                  f"{plain:.4f} ms  [{card}]")
+            for o in forms(oy, ox):
+                got = kgather.gather_windows(a, *o, D)
+                ref = kgather.gather_windows_plain(a, *o, D)
+                check(torch.equal(got, ref), f"K2 differs from its plain "
+                      f"version: {what} {dtype} {o[0].dtype} "
+                      f"{o[0].stride()}")
+            check(torch.equal(got, library(a, oy, ox, D)(None)),
+                  f"the library call differs from K2: {what} {dtype}")
+        a = src
+        ms_k = time_ms(lambda _: kgather.gather_windows(a, oy, ox, D), torch)
+        plain = time_ms(lambda _: kgather.gather_windows_plain(a, oy, ox, D),
+                        torch)
+        lib = time_ms(library(a, oy, ox, D), torch)
+        dev_k, _ = device_us(lambda _: kgather.gather_windows(a, oy, ox, D),
+                             torch, match="gather_")
+        dev_l, n_l = device_us(library(a, oy, ox, D), torch)
+        nbytes = win_bytes(a, oy, ox, D, 4) + n * 16       # and the origins
+        if per_frame:
+            add_row(k, ms_k, plain, dev_k, nbytes, 0, lib)
+        print(f"[3] K2 {what} N={n} D={D} {path_dtype}: bit-identical (f32 "
+              f"and bool; int64 and int32 origins, strided and contiguous); "
+              f"kernel {ms_k:.4f} ms, plain {plain:.4f} ms, library "
+              f"{lib:.4f} ms (CUDA events); device: kernel {fmt_us(dev_k)}, "
+              f"library {fmt_us(dev_l)} ({n_l:.0f} kernels); "
+              f"{bound_text(nbytes, 0)}; launches a frame {per_frame}, a "
+              f"keyframe {per_kf}  [{card}]")
+
+    # The ZMSSD search: image window D and corner-mask window M of the same
+    # points in one launch, the mask 4 px (half a patch) further in.
+    pairs = [(128, 40, 33, "coarse search", 1, 0),
+             (1024, 30, 23, "fine search", 1, 0),
+             (2048, 16, 9, "re-find search", 0, 1)]
+    for n, D, M, what, per_frame, per_kf in pairs:
+        oy, ox = origins(frame_atlas, n, D)
+        oy.clamp_(0, Ha - D)
+        ox.clamp_(0, Wa - D)
+        for o in forms(oy, ox):
+            got = kgather.gather_window_pair(frame_atlas, frame_mask, *o, D,
+                                             4, M)
+            ref = kgather.gather_window_pair_plain(frame_atlas, frame_mask,
+                                                   *o, D, 4, M)
+            check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+                  f"K2 pair differs from its plain version: {what} "
+                  f"{o[0].dtype} {o[0].stride()}")
+        lib_img = library(frame_atlas, oy, ox, D)
+        lib_msk = library(frame_mask, oy + 4, ox + 4, M)
+        check(torch.equal(lib_img(None), got[0])
+              and torch.equal(lib_msk(None), got[1]),
+              f"the library calls differ from the K2 pair: {what}")
+        pair = (lambda _: kgather.gather_window_pair(
+            frame_atlas, frame_mask, oy, ox, D, 4, M))
+        ms_k = time_ms(pair, torch)
+        plain = time_ms(lambda _: kgather.gather_window_pair_plain(
+            frame_atlas, frame_mask, oy, ox, D, 4, M), torch)
+        lib = time_ms(lambda _: (lib_img(None), lib_msk(None)), torch)
+        dev_k, n_k = device_us(pair, torch, match="gather_")
+        dev_l, n_l = device_us(lambda _: (lib_img(None), lib_msk(None)),
+                               torch)
+        nbytes = (win_bytes(frame_atlas, oy, ox, D, 4)
+                  + win_bytes(frame_mask, oy + 4, ox + 4, M, 1) + n * 16)
+        if per_frame:
+            add_row(k, ms_k, plain, dev_k, nbytes, 0, lib)
+        print(f"[3] K2 pair {what} N={n} D={D} f32 + M={M} bool: "
+              f"bit-identical (int64 and int32 origins, strided and "
+              f"contiguous); one launch ({n_k:.0f} kernels a call); kernel "
+              f"{ms_k:.4f} ms, plain {plain:.4f} ms, library (two calls) "
+              f"{lib:.4f} ms (CUDA events); device: kernel {fmt_us(dev_k)}, "
+              f"library {fmt_us(dev_l)} ({n_l:.0f} kernels); "
+              f"{bound_text(nbytes, 0)}; launches a frame {per_frame}, a "
+              f"keyframe {per_kf}  [{card}]")
+    for k in kernels.values():
+        print(f"[3] {k['name']} summed over a tracked frame's calls: kernel "
+              f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, library "
+              f"{k['library_ms']} ms (CUDA events); device "
+              f"{fmt_us(k['device_us'])}; bound {k['bound_us']:.3f} us "
+              f"({k['bound_by']}); {k['launches_per_frame']} launches a "
+              f"frame, {k['launches_per_keyframe']} a keyframe"
+              if k["launches_per_frame"] else
+              f"[3] {k['name']} summed over a keyframe's calls: kernel "
+              f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms (CUDA events);"
+              f" device {fmt_us(k['device_us'])}; bound {k['bound_us']:.3f} us"
+              f" ({k['bound_by']}); {k['launches_per_keyframe']} launches a "
+              f"keyframe")
 
     # ---- 4. tracking ----
     t0 = time.perf_counter()
@@ -312,7 +516,7 @@ def main():
     state = tracker.init_tracker_state(seq.pose(0), seed=0)
     prev = ff0.sbi_track
     results, step_s = [], []
-    reset_counts()
+    reset_launch_counts()
     for im in frames:
         t1 = time.perf_counter()
         out = step(state, m, im, prev)
@@ -320,13 +524,13 @@ def main():
         step_s.append(time.perf_counter() - t1)
         state, prev = out.state, out.sbi_track
         results.append(out)
-    launches = counts()
+    launches = launch_counts()
     for name, n in launches.items():
         kernels[name]["launches"] += n
-    # Per frame: FAST on 4 levels; templates + image window + mask window
-    # for each of the coarse and fine stages.
-    expected = {"fast10": 4 * N_FRAMES, "gather_windows": 6 * N_FRAMES,
-                "shi_tomasi": 0}
+    # Per frame: FAST over the atlas; for each of the coarse and fine
+    # stages the templates and the search pair (image + mask windows).
+    expected = {name: k["launches_per_frame"] * N_FRAMES
+                for name, k in kernels.items()}
     print(f"[4] launches {launches}, expected {expected}")
     check(launches == expected, "kernel launch counts differ")
 
@@ -424,7 +628,7 @@ def main():
     state = tracker.init_tracker_state(seq.pose(0), seed=1)
     prev = ffk0.sbi_track
     bad = []
-    reset_counts()
+    reset_launch_counts()
     for i in range(1, N_TRACK_KF + 1):
         out = step(state, mk, frames[i - 1], prev)
         state, prev = out.state, out.sbi_track
@@ -437,17 +641,18 @@ def main():
           f"{N_TRACK_KF}: {need} (wiggle_depth_norm 1.0); integrating "
           f"anyway, as bench_mapping.py does")
 
-    before = counts()
+    before = launch_counts()
     im_kf = frames[N_TRACK_KF - 1]
     ff = kflib.build_frame(im_kf, candidate_min_score=CAND_MIN)
     m_before = ms.copy_map(mk)
     mk2, new_mask, slot_n = integrate(mk, ff, state_kf.pose, res_kf)
     slot, n_added = slot_n.tolist()
-    kf_launches = {n: c - before[n] for n, c in counts().items()}
-    # build_frame: FAST and Shi-Tomasi on 4 levels. Integration: the
-    # re-find gathers templates, search windows and mask windows; each of
-    # the 4 epipolar levels templates, corner patches and sub-pixel windows.
-    kf_expected = {"fast10": 4, "gather_windows": 3 + 3 * 4, "shi_tomasi": 4}
+    kf_launches = {n: c - before[n] for n, c in launch_counts().items()}
+    # build_frame: FAST over the atlas, Shi-Tomasi on 4 levels. Integration:
+    # the re-find gathers templates and the search pair; each of the 4
+    # epipolar levels templates, corner patches and sub-pixel windows.
+    kf_expected = {name: k["launches_per_keyframe"]
+                   for name, k in kernels.items()}
     new_idx = torch.nonzero(new_mask)[:, 0]
     per_level = {lev: int((mk2.point_src_level[new_idx] == lev).sum())
                  for lev in mapmaker.EPI_LEVEL_ORDER}
@@ -475,12 +680,11 @@ def main():
         bad += [b for b in [off_bars(state, i)] if b]
         r = out.result
         new_found += int((r.meas_valid & new_mask[r.meas_point]).sum())
-    launches = counts()
+    launches = launch_counts()
     for name, n in launches.items():
         kernels[name]["launches"] += n
-    expected = {"fast10": 4 * N_FRAMES + 4,
-                "gather_windows": 6 * N_FRAMES + kf_expected["gather_windows"],
-                "shi_tomasi": 4}
+    expected = {name: k["launches_per_frame"] * N_FRAMES
+                + k["launches_per_keyframe"] for name, k in kernels.items()}
     print(f"[6] frames {N_TRACK_KF + 1}..{N_FRAMES} against the grown map: "
           f"{new_found} measurements of new points found; off the bars: "
           f"{bad}; launches of the phase {launches}, expected {expected}")

@@ -1,8 +1,11 @@
-"""PyTorch + CUDA port of ``ptam_cg_tpu`` (per-frame tracking slice).
+"""PyTorch + CUDA port of ``ptam_cg_tpu`` (tracking and keyframe
+integration).
 
 The layout mirrors the JAX package module by module; ``kernels/`` and
 ``csrc/`` hold the hand-written Hopper kernels and their plain PyTorch
-versions. Tunables are shared with the JAX package through
-``ptam_cg_tpu.config``, which holds dataclasses only and imports no JAX.
-Importing this package imports ``torch`` and numpy, never ``jax``.
+versions. ``config.py`` is the port's own copy of the JAX package's
+tunables, held equal to it by a test. Importing this package imports
+``torch`` and numpy, and nothing of ``jax`` or of ``ptam_cg_tpu``.
+Entry points that make tensors put them on the card unless the caller
+passes ``device="cpu"``.
 """

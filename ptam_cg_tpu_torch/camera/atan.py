@@ -51,14 +51,12 @@ def _invrtrans(r: Tensor, cam: Camera) -> Tensor:
                        torch.tan(r * cam.w) * cam.one_over_2tan)
 
 
-def make_camera(params, image_size: Tuple[int, int], device=None) -> Camera:
-    """Build the precomputed camera (RefreshParams). ``params`` is a
-    sequence of 5 floats or a (5,) tensor; ``device`` defaults to the
-    tensor's device."""
+def make_camera(params, image_size: Tuple[int, int],
+                device="cuda") -> Camera:
+    """Build the precomputed camera (RefreshParams) on ``device``.
+    ``params`` is a sequence of 5 floats or a (5,) tensor."""
     if isinstance(params, Tensor):
-        p = params.to(torch.float32)
-        if device is not None:
-            p = p.to(device)
+        p = params.to(device=device, dtype=torch.float32)
     else:
         p = torch.tensor(params, dtype=torch.float32, device=device)
     dev = p.device

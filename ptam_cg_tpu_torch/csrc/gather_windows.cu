@@ -1,61 +1,188 @@
 // Per-point window gather (kernel K2):
 //   out[n] = atlas[oy_n : oy_n + D, ox_n : ox_n + D]
-// with each origin clamped to [0, Ha-D] x [0, Wa-D], so no read ever
-// leaves the atlas (as gather_windows_rowtake clamps).
+// with each origin moved by `off` and then clamped to [0, Ha-D] x
+// [0, Wa-D], so no read ever leaves the atlas (as gather_windows_rowtake
+// clamps). The pair entry gathers an f32 image window and a byte mask
+// window of the same points, at origins `off` apart, in one launch (the
+// ZMSSD search reads both).
 //
 // Replaces the TPU kernels ptam_cg_tpu/ops/pallas_gather.py
 // gather_windows_pallas (one DMA per point) and gather_windows_aligned
 // (tile-aligned DMAs plus one-hot shift matmuls, a Mosaic alignment
 // workaround), and the XLA row-take the JAX package uses in production.
-// The copy is exact for any element type; it is instantiated for float
-// (images) and uint8 (the FAST corner mask, gathered as bytes).
+// The copy is exact; it is instantiated for float (images) and uint8
+// (the FAST corner mask, gathered as bytes).
 //
-// Bound on the H100: bytes, and at the tracking shapes the launch. The
-// largest call (1024 windows of 30x30 f32) moves 3.7 MB each way, about
-// 2 us at 3.35 TB/s. One 256-thread block per window walks the D*D
-// elements in row-major order, so neighbouring threads write neighbouring
-// addresses and read runs of D contiguous atlas elements per row.
+// Bound on the H100: the atlas (1.84 MB a frame, 7.4 MB for four
+// keyframes) sits in the 50 MB L2, so reads are L2 hits and latency and
+// the launch set the time; the byte bound counts the atlas bytes under
+// at least one window once and each window's bytes written once
+// (chip_smoke.py prints it at the path's shapes). The design keeps
+// every thread on one short chain of loads, with neighbouring lanes on
+// neighbouring addresses:
+// - the output, all windows together, is one flat run of N*D*D
+//   elements; each thread copies 4 consecutive elements of it and writes
+//   them with one vector store: 16 bytes for f32, 4 for bytes (the buffer
+//   is 256-byte aligned, so every store is aligned whatever D is). With
+//   16 bytes a thread, a warp's byte loads would fall on ~16 rows each
+//   (one sector a lane); with 4, on ~5;
+// - a thread's window, row and column come from two multiply-high
+//   divisions by D*D and D (no divide instruction), then a carry walk;
+// - the origins are read as the caller holds them: int32 or int64, the
+//   y and x columns as two strided vectors (no cast or stack launch).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr int THREADS = 256;
+
+struct Job {
+  const void* atlas;      // (Ha, Wa) elements
+  void* out;              // (N, D, D) elements
+  const void* oy;         // origin rows, N of them, stride sy
+  const void* ox;         // origin columns, stride sx
+  long long sy, sx;
+  unsigned long long magic_dd;  // ceil(2^64 / (D*D))
+  unsigned long long magic_d;   // ceil(2^64 / D)
+  unsigned total;         // N * D * D
+  int Ha, Wa, N, D, off, idx64;
+  int blocks;             // blocks of the launch that serve this job
+};
+
+__device__ __forceinline__ long long origin(const void* p, long long stride,
+                                            int idx64, unsigned n) {
+  return idx64 ? __ldg(static_cast<const long long*>(p) + n * stride)
+               : (long long)__ldg(static_cast<const int*>(p) + n * stride);
+}
+
 template <typename T>
-__global__ void gather_windows_kernel(const T* __restrict__ atlas, int Ha,
-                                      int Wa,
-                                      const int* __restrict__ origin_yx,
-                                      int D, T* __restrict__ out) {
-  const int n = blockIdx.x;
-  const int oy = min(max(origin_yx[2 * n], 0), Ha - D);
-  const int ox = min(max(origin_yx[2 * n + 1], 0), Wa - D);
-  const T* src = atlas + (size_t)oy * Wa + ox;
-  T* dst = out + (size_t)n * D * D;
-  for (int i = threadIdx.x; i < D * D; i += blockDim.x) {
-    const int r = i / D;
-    const int c = i - r * D;
-    dst[i] = src[(size_t)r * Wa + c];
+__device__ __forceinline__ const T* window(const Job& j, unsigned n) {
+  long long oy = origin(j.oy, j.sy, j.idx64, n) + j.off;
+  long long ox = origin(j.ox, j.sx, j.idx64, n) + j.off;
+  oy = min(max(oy, 0LL), (long long)(j.Ha - j.D));
+  ox = min(max(ox, 0LL), (long long)(j.Wa - j.D));
+  return static_cast<const T*>(j.atlas) + oy * j.Wa + ox;
+}
+
+constexpr int V = 4;  // elements a thread copies
+
+template <int BYTES> struct Word;
+template <> struct Word<16> { using type = uint4; };
+template <> struct Word<4> { using type = uint32_t; };
+
+// Copy elements [V * chunk, V * chunk + V) of job j's flat output.
+template <typename T>
+__device__ __forceinline__ void copy_chunk(const Job& j, unsigned chunk) {
+  using W = typename Word<V * sizeof(T)>::type;
+  const unsigned e0 = chunk * V;
+  if (e0 >= j.total) return;
+  const unsigned DD = j.D * j.D;
+  unsigned n = (unsigned)__umul64hi(e0, j.magic_dd);
+  const unsigned rem = e0 - n * DD;
+  unsigned r = (unsigned)__umul64hi(rem, j.magic_d);
+  unsigned c = rem - r * j.D;
+  const T* src = window<T>(j, n);
+  union {
+    W v;
+    T s[V];
+  } u;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    u.s[k] = (n < (unsigned)j.N) ? src[(size_t)r * j.Wa + c] : T(0);
+    if (++c == (unsigned)j.D) {
+      c = 0;
+      if (++r == (unsigned)j.D) {
+        r = 0;
+        if (++n < (unsigned)j.N) src = window<T>(j, n);
+      }
+    }
+  }
+  T* dst = static_cast<T*>(j.out) + e0;
+  if (e0 + V <= j.total) {
+    *reinterpret_cast<W*>(dst) = u.v;
+  } else {
+    for (unsigned k = 0; e0 + k < j.total; ++k) dst[k] = u.s[k];
   }
 }
 
 template <typename T>
-int launch(const T* atlas, int Ha, int Wa, const int* origin_yx, int N,
-           int D, T* out, cudaStream_t stream) {
-  gather_windows_kernel<T><<<N, 256, 0, stream>>>(atlas, Ha, Wa, origin_yx,
-                                                  D, out);
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(THREADS) gather_kernel(Job j) {
+  copy_chunk<T>(j, blockIdx.x * THREADS + threadIdx.x);
+}
+
+// The first img.blocks blocks copy the image windows, the rest the mask
+// windows.
+__global__ void __launch_bounds__(THREADS) gather_pair_kernel(Job img,
+                                                              Job msk) {
+  if ((int)blockIdx.x < img.blocks) {
+    copy_chunk<float>(img, blockIdx.x * THREADS + threadIdx.x);
+  } else {
+    copy_chunk<uint8_t>(msk,
+                        (blockIdx.x - img.blocks) * THREADS + threadIdx.x);
+  }
+}
+
+Job make_job(const void* atlas, int Ha, int Wa, const void* oy,
+             const void* ox, long long sy, long long sx, int idx64, int N,
+             int D, int off, void* out) {
+  Job j;
+  j.atlas = atlas;
+  j.out = out;
+  j.oy = oy;
+  j.ox = ox;
+  j.sy = sy;
+  j.sx = sx;
+  // ceil(2^64 / d) for d >= 2 (the wrapper asks for D >= 2).
+  j.magic_dd = ~0ULL / (unsigned long long)(D * D) + 1;
+  j.magic_d = ~0ULL / (unsigned long long)D + 1;
+  j.total = (unsigned)N * D * D;
+  j.Ha = Ha;
+  j.Wa = Wa;
+  j.N = N;
+  j.D = D;
+  j.off = off;
+  j.idx64 = idx64;
+  const unsigned chunks = (j.total + V - 1) / V;
+  j.blocks = (int)((chunks + THREADS - 1) / THREADS);
+  return j;
 }
 
 }  // namespace
 
+// Each entry returns the launch's cudaGetLastError() code.
 extern "C" int gather_windows_f32(const float* atlas, int Ha, int Wa,
-                                  const int* origin_yx, int N, int D,
-                                  float* out, cudaStream_t stream) {
-  return launch<float>(atlas, Ha, Wa, origin_yx, N, D, out, stream);
+                                  const void* oy, const void* ox,
+                                  long long sy, long long sx, int idx64,
+                                  int N, int D, float* out,
+                                  cudaStream_t stream) {
+  const Job j = make_job(atlas, Ha, Wa, oy, ox, sy, sx, idx64, N, D, 0, out);
+  gather_kernel<float><<<j.blocks, THREADS, 0, stream>>>(j);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int gather_windows_u8(const uint8_t* atlas, int Ha, int Wa,
-                                 const int* origin_yx, int N, int D,
-                                 uint8_t* out, cudaStream_t stream) {
-  return launch<uint8_t>(atlas, Ha, Wa, origin_yx, N, D, out, stream);
+                                 const void* oy, const void* ox,
+                                 long long sy, long long sx, int idx64,
+                                 int N, int D, uint8_t* out,
+                                 cudaStream_t stream) {
+  const Job j = make_job(atlas, Ha, Wa, oy, ox, sy, sx, idx64, N, D, 0, out);
+  gather_kernel<uint8_t><<<j.blocks, THREADS, 0, stream>>>(j);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gather_window_pair(const float* atlas, const uint8_t* mask,
+                                  int Ha, int Wa, const void* oy,
+                                  const void* ox, long long sy, long long sx,
+                                  int idx64, int N, int D, int off, int M,
+                                  float* out, uint8_t* mout,
+                                  cudaStream_t stream) {
+  const Job img = make_job(atlas, Ha, Wa, oy, ox, sy, sx, idx64, N, D, 0,
+                           out);
+  const Job msk = make_job(mask, Ha, Wa, oy, ox, sy, sx, idx64, N, M, off,
+                           mout);
+  gather_pair_kernel<<<img.blocks + msk.blocks, THREADS, 0, stream>>>(img,
+                                                                      msk);
+  return (int)cudaGetLastError();
 }

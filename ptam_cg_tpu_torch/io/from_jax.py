@@ -2,8 +2,9 @@
 
 Each function takes a dict of field name -> ``np.ndarray`` (nested
 NamedTuples as nested dicts), as ``as_numpy_tree`` makes from a JAX
-NamedTuple, and returns the port's dataclass on ``device``. Nothing here
-imports JAX: ``as_numpy_tree`` only calls ``np.asarray`` on the leaves.
+NamedTuple, and returns the port's dataclass on ``device`` (the card
+unless the caller passes ``device="cpu"``). Nothing here imports JAX:
+``as_numpy_tree`` only calls ``np.asarray`` on the leaves.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ def as_numpy_tree(obj):
     return np.asarray(obj)
 
 
-def tensor(a, device=None) -> torch.Tensor:
+def tensor(a, device="cuda") -> torch.Tensor:
     """A writable copy of a numpy array as a tensor of the same dtype."""
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
@@ -38,19 +39,19 @@ def _fields(cls, d: dict, device) -> dict:
     return {f.name: tensor(d[f.name], device) for f in dataclasses.fields(cls)}
 
 
-def se3_from_numpy(d: dict, device=None) -> SE3:
+def se3_from_numpy(d: dict, device="cuda") -> SE3:
     return SE3(tensor(d["R"], device), tensor(d["t"], device))
 
 
-def camera_from_numpy(d: dict, device=None) -> Camera:
+def camera_from_numpy(d: dict, device="cuda") -> Camera:
     return Camera(**_fields(Camera, d, device))
 
 
-def sbi_from_numpy(d: dict, device=None) -> SBI:
+def sbi_from_numpy(d: dict, device="cuda") -> SBI:
     return SBI(tensor(d["template"], device), tensor(d["jac"], device))
 
 
-def track_features_from_numpy(d: dict, device=None) -> TrackFeatures:
+def track_features_from_numpy(d: dict, device="cuda") -> TrackFeatures:
     """From a JAX TrackFeatures or FrameFeatures (extra fields ignored)."""
     return TrackFeatures(atlas=tensor(d["atlas"], device),
                          corner_mask=tensor(d["corner_mask"], device),
@@ -58,7 +59,7 @@ def track_features_from_numpy(d: dict, device=None) -> TrackFeatures:
                          sbi_track=sbi_from_numpy(d["sbi_track"], device))
 
 
-def frame_features_from_numpy(d: dict, device=None) -> FrameFeatures:
+def frame_features_from_numpy(d: dict, device="cuda") -> FrameFeatures:
     """From a JAX FrameFeatures."""
     fields = {f.name: tensor(d[f.name], device)
               for f in dataclasses.fields(FrameFeatures)
@@ -67,16 +68,16 @@ def frame_features_from_numpy(d: dict, device=None) -> FrameFeatures:
                          sbi_track=sbi_from_numpy(d["sbi_track"], device))
 
 
-def map_state_from_numpy(d: dict, device=None) -> MapState:
+def map_state_from_numpy(d: dict, device="cuda") -> MapState:
     """From a JAX MapState (a TrackView lacks fields the port keeps)."""
     return MapState(**_fields(MapState, d, device))
 
 
-def tracker_state_from_numpy(d: dict, device=None,
+def tracker_state_from_numpy(d: dict, device="cuda",
                              seed: int = 0) -> TrackerState:
     """From a JAX TrackerState. Its PRNG key has no torch counterpart: the
     port's state gets a fresh generator seeded with ``seed``."""
-    gen = torch.Generator(device=device if device is not None else "cpu")
+    gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return TrackerState(
         pose=se3_from_numpy(d["pose"], device),

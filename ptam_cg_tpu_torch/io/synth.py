@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ptam_cg_tpu.config import LEVELS, FrontendConfig
+from ptam_cg_tpu_torch.config import LEVELS, FrontendConfig
 from ptam_cg_tpu_torch.camera import atan
 from ptam_cg_tpu_torch.models import keyframe as kflib
 from ptam_cg_tpu_torch.models import map_state as ms
@@ -31,7 +31,7 @@ Tensor = torch.Tensor
 
 
 def make_texture(rng: np.random.Generator, size: int = 512,
-                 device=None) -> Tensor:
+                 device="cuda") -> Tensor:
     """Multi-scale noise texture in [10, 245] with plenty of FAST corners:
     fine noise, cubic-upsampled blobs, nearest-upsampled patches and a
     high-contrast 4-px block pattern."""
@@ -88,7 +88,7 @@ def render_plane(cam: atan.Camera, T_cw: SE3, texture: Tensor,
 
 def orbit_trajectory(n_frames: int, height: float = 1.5,
                      radius: float = 0.25, sweep: float = 0.8,
-                     look_at_z: float = 0.0, device=None) -> SE3:
+                     look_at_z: float = 0.0, device="cuda") -> SE3:
     """Lateral arc above the plane, always looking at the origin region:
     batched SE3 (n_frames poses, world -> camera)."""
     t = torch.linspace(0.0, 1.0, n_frames, device=device)
@@ -116,7 +116,7 @@ class SyntheticSequence:
 
     def __init__(self, cam_params, image_size=(640, 480), n_frames=100,
                  seed=0, height=1.5, radius=0.25, sweep=0.8,
-                 tex_scale=256.0, device=None):
+                 tex_scale=256.0, device="cuda"):
         self.cam = atan.make_camera(cam_params, image_size, device)
         self.image_size = image_size
         self.n_frames = n_frames

@@ -1,24 +1,29 @@
-"""K1: FAST-10 corner mask and score (``csrc/fast10.cu``).
+"""K1: FAST-10 corner mask, score and corner counts (``csrc/fast10.cu``).
 
 Replaces the TPU kernels ``ptam_cg_tpu/ops/pallas_kernels.py``
 ``fast_score_map_banded`` and ``fast_score_map_pallas``; the function is
-``ptam_cg_tpu/ops/fast.py::fast_score_map``. The kernel is bound by bytes
-and, at the tracking shapes, by its launch (see the note in the source);
-it stages each output tile with its 3-px halo in shared memory so every
-input byte is read from device memory once.
+``ptam_cg_tpu/ops/fast.py::fast_score_map`` on each pyramid level.
 
-``fast_score_map`` runs the plain version for a CPU tensor and the kernel
-for a CUDA tensor. The result is bit-identical either way: the function
-uses only f32 add, subtract, min and max.
+``fast_atlas`` runs all four levels of a packed pyramid atlas in one
+launch: the corner mask comes out in the atlas layout (False outside the
+levels); only when asked, the score (score+t at corners, 0 elsewhere)
+into an atlas-shaped buffer and the per-level corner counts, from one
+integer atomic add per block and level. It runs the plain version for a
+CPU tensor and the kernel for a CUDA tensor, bit-identical either way:
+the function uses only f32 add, subtract, min and max.
+``fast_score_map_plain`` is the single-image function, the plain version
+of each level.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from ptam_cg_tpu_torch.kernels import _build
+from ptam_cg_tpu_torch.ops import levels as levelops
 
 Tensor = torch.Tensor
 
@@ -30,7 +35,7 @@ CIRCLE = (
     (0, 3), (-1, 3), (-2, 2), (-3, 1), (-3, 0), (-3, -1), (-2, -2), (-1, -3),
 )
 
-#: Kernel launches made by ``fast_score_map`` in this process.
+#: Kernel launches made by ``fast_atlas`` in this process.
 launches = 0
 
 
@@ -63,34 +68,78 @@ def fast_score_map_plain(im: Tensor, threshold: float):
     return is_corner, torch.where(is_corner, score + threshold, 0.0)
 
 
+def level_rects(atlas_shape: Tuple[int, int]):
+    """(row, col, height, width) of each level in an atlas of this shape."""
+    Ha, W = atlas_shape
+    if Ha % 3 or (2 * Ha // 3) % 8 or W % 8:
+        raise ValueError(f"not a pyramid atlas shape: {Ha}x{W}")
+    h = 2 * Ha // 3
+    return tuple((r, c, hl, wl) for (r, c), (hl, wl) in zip(
+        levelops.level_offsets(h, W), levelops.level_sizes(h, W)))
+
+
+def fast_atlas_plain(atlas: Tensor, thresholds: Sequence[float], *,
+                     scores: bool = False):
+    """Plain version of ``fast_atlas``: ``fast_score_map_plain`` on each
+    level's view, packed into the atlas layout."""
+    mask = torch.zeros(atlas.shape, dtype=torch.bool, device=atlas.device)
+    score = torch.zeros(atlas.shape, dtype=torch.float32,
+                        device=atlas.device) if scores else None
+    n = []
+    for (r, c, hl, wl), t in zip(level_rects(atlas.shape), thresholds):
+        m, s = fast_score_map_plain(atlas[r: r + hl, c: c + wl], float(t))
+        mask[r: r + hl, c: c + wl] = m
+        if scores:
+            score[r: r + hl, c: c + wl] = s
+        n.append(torch.sum(m, dtype=torch.int32))
+    return mask, score, torch.stack(n) if scores else None
+
+
 def _lib():
-    lib = _build.load("fast10")
-    fn = lib.fast10_launch
+    fn = _build.load("fast10").fast10_atlas
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def fast_score_map(im: Tensor, threshold: float):
-    """FAST-10 corner mask and score of one (H, W) float32 image."""
-    if im.device.type == "cpu":
-        return fast_score_map_plain(im, threshold)
-    if im.device.type != "cuda":
-        raise ValueError(f"fast_score_map: unsupported device {im.device}")
-    if im.dtype != torch.float32 or im.ndim != 2:
-        raise ValueError("fast_score_map: need a 2-D float32 image, got "
-                         f"{tuple(im.shape)} {im.dtype}")
-    im = im.contiguous()
-    H, W = im.shape
-    mask = torch.empty((H, W), dtype=torch.bool, device=im.device)
-    score = torch.empty((H, W), dtype=torch.float32, device=im.device)
+def fast_atlas(atlas: Tensor, thresholds: Sequence[float], *,
+               scores: bool = False
+               ) -> Tuple[Tensor, Optional[Tensor], Optional[Tensor]]:
+    """FAST-10 on every level of a (1.5 H, W) float32 pyramid atlas, one
+    threshold per level. Returns (corner mask (Ha, W) bool, the score
+    atlas (Ha, W) float32, per-level corner counts (LEVELS,) int32); the
+    last two only with ``scores``, else None."""
+    if atlas.device.type == "cpu":
+        return fast_atlas_plain(atlas, thresholds, scores=scores)
+    rects = level_rects(atlas.shape)
+    if len(thresholds) != len(rects):
+        raise ValueError(f"fast_atlas: {len(thresholds)} thresholds for "
+                         f"{len(rects)} levels")
+    if atlas.device.type != "cuda" or atlas.dtype != torch.float32:
+        raise ValueError(f"fast_atlas: need a float32 CUDA atlas, got "
+                         f"{atlas.dtype} on {atlas.device}")
+    atlas = atlas.contiguous()
+    Ha, Wa = atlas.shape
+    if Wa % 4 or atlas.data_ptr() % 16:
+        raise ValueError(f"fast_atlas: the kernel reads 16-byte rows; width "
+                         f"{Wa} is no multiple of 4 or the data unaligned")
+    n = len(rects)
+    flat = [int(v) for rect in rects for v in rect]
+    mask = torch.empty((Ha, Wa), dtype=torch.bool, device=atlas.device)
+    sc = cnt = None
+    if scores:
+        sc = torch.empty((Ha, Wa), dtype=torch.float32, device=atlas.device)
+        cnt = torch.zeros(n, dtype=torch.int32, device=atlas.device)
     fn = _lib()
     global launches
     launches += 1
-    _build.check(fn(im.data_ptr(), mask.data_ptr(), score.data_ptr(), H, W,
-                    float(threshold), _build.stream_handle(im)),
-                 "fast10_launch")
-    return mask, score
+    _build.check(fn(atlas.data_ptr(), Ha, Wa,
+                    (ctypes.c_int * len(flat))(*flat),
+                    (ctypes.c_float * n)(*[float(t) for t in thresholds]),
+                    mask.data_ptr(), 0 if sc is None else sc.data_ptr(),
+                    0 if cnt is None else cnt.data_ptr(),
+                    _build.stream_handle(atlas)), "fast_atlas")
+    return mask, sc, cnt

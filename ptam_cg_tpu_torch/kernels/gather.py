@@ -4,13 +4,16 @@
 clamped to ``[0, Ha-D] x [0, Wa-D]``. Replaces the TPU kernels
 ``ptam_cg_tpu/ops/pallas_gather.py`` ``gather_windows_pallas`` and
 ``gather_windows_aligned`` (and the XLA row-take used in production
-there). The kernel is bound by bytes and, at the tracking shapes, by its
-launch (see the note in the source); one block per window walks the
-window in row-major order for coalesced stores.
+there). The atlas sits in L2, so latency and the launch bound the kernel
+(see the note in the source): each thread copies 4 consecutive elements
+of the flat output with one vector store.
 
-It copies float32 images and bool / uint8 masks (the FAST corner mask
-is gathered as bytes). ``gather_windows`` runs the plain version for CPU
-tensors and the kernel for CUDA tensors; both are exact copies.
+Origins come as two (N,) tensors ``oy`` and ``ox``, int32 or int64,
+strided or not: the kernel reads them as they are, so a caller needs no
+cast and no stack. ``gather_window_pair`` gathers an image window and a
+corner-mask window of the same points in one launch. Both entries run
+the plain version for CPU tensors and the kernel for CUDA tensors; both
+are exact copies of float32 images and bool / uint8 masks.
 """
 
 from __future__ import annotations
@@ -23,28 +26,52 @@ from ptam_cg_tpu_torch.kernels import _build
 
 Tensor = torch.Tensor
 
-#: Kernel launches made by ``gather_windows`` in this process.
+#: Kernel launches made by ``gather_windows`` and ``gather_window_pair``
+#: in this process.
 launches = 0
 
 
-def gather_windows_plain(atlas: Tensor, origin_yx: Tensor, D: int) -> Tensor:
-    """Plain PyTorch gather: atlas (Ha, Wa), origin_yx (N, 2) (y, x)
-    top-left corners -> (N, D, D) of the atlas dtype."""
+def gather_windows_plain(atlas: Tensor, oy: Tensor, ox: Tensor, D: int,
+                         offset: int = 0) -> Tensor:
+    """Plain PyTorch gather: atlas (Ha, Wa); the (oy, ox) columns of the
+    top-left corners, moved by ``offset`` and clamped -> (N, D, D) of the
+    atlas dtype."""
     Ha, Wa = atlas.shape
-    oy = torch.clamp(origin_yx[:, 0].long(), 0, Ha - D)
-    ox = torch.clamp(origin_yx[:, 1].long(), 0, Wa - D)
+    oy = torch.clamp(oy.long() + offset, 0, Ha - D)
+    ox = torch.clamp(ox.long() + offset, 0, Wa - D)
     ii = torch.arange(D, device=atlas.device)
     rows = (oy[:, None] + ii)[:, :, None]
     cols = (ox[:, None] + ii)[:, None, :]
     return atlas[rows, cols]
 
 
+def gather_window_pair_plain(atlas: Tensor, mask: Tensor, oy: Tensor,
+                             ox: Tensor, D: int, offset: int, M: int):
+    """Plain version of ``gather_window_pair``: two gathers."""
+    return (gather_windows_plain(atlas, oy, ox, D),
+            gather_windows_plain(mask, oy, ox, M, offset))
+
+
+_SIGNATURES = {
+    "gather_windows_f32": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_longlong, ctypes.c_longlong,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_void_p, ctypes.c_void_p],
+    "gather_window_pair": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_longlong, ctypes.c_longlong,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                           ctypes.c_void_p, ctypes.c_void_p],
+}
+_SIGNATURES["gather_windows_u8"] = _SIGNATURES["gather_windows_f32"]
+
+
 def _entry(name: str):
     fn = getattr(_build.load("gather_windows"), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.argtypes = _SIGNATURES[name]
         fn.restype = ctypes.c_int
     return fn
 
@@ -54,31 +81,84 @@ _ENTRIES = {torch.float32: "gather_windows_f32",
             torch.bool: "gather_windows_u8"}
 
 
-def gather_windows(atlas: Tensor, origin_yx: Tensor, D: int) -> Tensor:
-    """(N, D, D) windows of ``atlas`` at the clamped (y, x) origins."""
-    if atlas.device.type == "cpu":
-        return gather_windows_plain(atlas, origin_yx, D)
-    if atlas.device.type != "cuda" or origin_yx.device != atlas.device:
-        raise ValueError("gather_windows: atlas and origins must be on one "
-                         f"CUDA device, got {atlas.device} and "
-                         f"{origin_yx.device}")
-    if atlas.dtype not in _ENTRIES or atlas.ndim != 2:
-        raise ValueError("gather_windows: need a 2-D float32/uint8/bool "
-                         f"atlas, got {tuple(atlas.shape)} {atlas.dtype}")
+def _check_atlas(atlas: Tensor, dtypes, what: str) -> None:
+    if atlas.device.type != "cuda" or atlas.ndim != 2 or \
+            atlas.dtype not in dtypes:
+        raise ValueError(f"{what}: need a 2-D CUDA atlas of {dtypes}, got "
+                         f"{tuple(atlas.shape)} {atlas.dtype} on "
+                         f"{atlas.device}")
+
+
+def _origin_args(atlas: Tensor, oy: Tensor, ox: Tensor, sizes, what: str):
+    """(oy pointer, ox pointer, oy stride, ox stride, int64?, N) for the
+    C entries, after checking the origins and window sides."""
+    N = oy.shape[0]
+    if oy.ndim != 1 or ox.shape != (N,) or oy.dtype != ox.dtype or \
+            oy.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"{what}: origins must be (N,) int32 or int64 "
+                         f"columns, got {tuple(oy.shape)} {oy.dtype} and "
+                         f"{tuple(ox.shape)} {ox.dtype}")
+    if oy.device != atlas.device or ox.device != atlas.device:
+        raise ValueError(f"{what}: atlas and origins must be on one CUDA "
+                         f"device, got {atlas.device}, {oy.device} and "
+                         f"{ox.device}")
     Ha, Wa = atlas.shape
-    N = origin_yx.shape[0]
-    if origin_yx.shape != (N, 2) or not (0 < D <= min(Ha, Wa)):
-        raise ValueError(f"gather_windows: bad origins {tuple(origin_yx.shape)}"
-                         f" or window {D} for atlas {Ha}x{Wa}")
+    for D in sizes:
+        if not 2 <= D <= min(Ha, Wa) or N * D * D >= 2 ** 31:
+            raise ValueError(f"{what}: window {D} for {N} points does not "
+                             f"fit the kernel or the atlas {Ha}x{Wa}")
+    return (oy.data_ptr(), ox.data_ptr(), oy.stride(0), ox.stride(0),
+            int(oy.dtype == torch.int64), N)
+
+
+def gather_windows(atlas: Tensor, oy: Tensor, ox: Tensor, D: int) -> Tensor:
+    """(N, D, D) windows of ``atlas`` at the clamped (oy, ox) origins."""
+    if atlas.device.type == "cpu":
+        return gather_windows_plain(atlas, oy, ox, D)
+    _check_atlas(atlas, _ENTRIES, "gather_windows")
+    py, px, sy, sx, idx64, N = _origin_args(atlas, oy, ox, (D,),
+                                            "gather_windows")
     atlas = atlas.contiguous()
-    origins = origin_yx.to(torch.int32).contiguous()
+    Ha, Wa = atlas.shape
     out = torch.empty((N, D, D), dtype=atlas.dtype, device=atlas.device)
     if N == 0:
         return out
     fn = _entry(_ENTRIES[atlas.dtype])
     global launches
     launches += 1
-    _build.check(fn(atlas.data_ptr(), Ha, Wa, origins.data_ptr(), N, D,
+    _build.check(fn(atlas.data_ptr(), Ha, Wa, py, px, sy, sx, idx64, N, D,
                     out.data_ptr(), _build.stream_handle(atlas)),
                  "gather_windows")
     return out
+
+
+def gather_window_pair(atlas: Tensor, mask: Tensor, oy: Tensor, ox: Tensor,
+                       D: int, offset: int, M: int):
+    """In one launch: the (N, D, D) float32 windows of ``atlas`` at the
+    clamped origins, and the (N, M, M) windows of the bool ``mask`` (same
+    shape as the atlas) at the origins moved by ``offset``, clamped."""
+    if atlas.device.type == "cpu":
+        return gather_window_pair_plain(atlas, mask, oy, ox, D, offset, M)
+    _check_atlas(atlas, (torch.float32,), "gather_window_pair")
+    _check_atlas(mask, (torch.bool, torch.uint8), "gather_window_pair")
+    if mask.shape != atlas.shape or mask.device != atlas.device:
+        raise ValueError("gather_window_pair: mask and atlas differ: "
+                         f"{tuple(mask.shape)} on {mask.device} vs "
+                         f"{tuple(atlas.shape)} on {atlas.device}")
+    py, px, sy, sx, idx64, N = _origin_args(atlas, oy, ox, (D, M),
+                                            "gather_window_pair")
+    atlas = atlas.contiguous()
+    mask = mask.contiguous()
+    Ha, Wa = atlas.shape
+    out = torch.empty((N, D, D), dtype=atlas.dtype, device=atlas.device)
+    mout = torch.empty((N, M, M), dtype=mask.dtype, device=atlas.device)
+    if N == 0:
+        return out, mout
+    fn = _entry("gather_window_pair")
+    global launches
+    launches += 1
+    _build.check(fn(atlas.data_ptr(), mask.data_ptr(), Ha, Wa, py, px, sy,
+                    sx, idx64, N, D, offset, M, out.data_ptr(),
+                    mout.data_ptr(), _build.stream_handle(atlas)),
+                 "gather_window_pair")
+    return out, mout

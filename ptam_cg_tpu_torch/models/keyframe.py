@@ -4,8 +4,10 @@
 (MakeKeyFrame_Lite: pyramid atlas, FAST corner mask, SBIs).
 ``build_frame`` is the full keyframe build: the same, plus per level the
 3x3 non-max corner list and the Shi-Tomasi candidate list
-(MakeKeyFrame_Rest). FAST runs through kernel K1 and Shi-Tomasi through
-kernel K3, one launch per level each.
+(MakeKeyFrame_Rest). FAST runs through kernel K1, one launch over the
+whole pyramid atlas (the per-frame build asks it for the corner mask
+alone; the keyframe build also for the scores and the corner counts), and
+Shi-Tomasi through kernel K3, one launch per level.
 """
 
 from __future__ import annotations
@@ -15,8 +17,8 @@ from typing import Tuple
 
 import torch
 
-from ptam_cg_tpu.config import (LEVELS, MAX_CANDIDATES, MAX_NONMAX_CORNERS,
-                                FrontendConfig)
+from ptam_cg_tpu_torch.config import (LEVELS, MAX_CANDIDATES,
+                                      MAX_NONMAX_CORNERS, FrontendConfig)
 from ptam_cg_tpu_torch.ops import fast as fastops
 from ptam_cg_tpu_torch.ops import image as imops
 from ptam_cg_tpu_torch.ops import levels as levelops
@@ -56,20 +58,22 @@ class FrameFeatures:
     sbi_track: sbiops.SBI    # rotation-estimator SBI (blur 0.75)
 
 
-def make_frame_lite(im: Tensor, cfg: FrontendConfig = FrontendConfig()):
-    """Pyramid + per-level FAST (kernel K1, one launch per level).
-    Returns (pyramid, atlas, corner_mask, score maps, corner counts)."""
+def make_frame_lite(im: Tensor, cfg: FrontendConfig = FrontendConfig(),
+                    scores: bool = True):
+    """Pyramid + FAST on every level (kernel K1, one launch over the
+    atlas). Returns (pyramid, atlas, corner_mask, score maps, corner
+    counts); with ``scores`` False the last two are None and K1 writes
+    the corner mask alone."""
     pyramid = imops.build_pyramid(im, LEVELS)
     atlas = levelops.pack_atlas(pyramid)
-    masks, scores = [], []
-    for lev in range(LEVELS):
-        is_c, sc = fastops.fast_score_map(pyramid[lev],
-                                          float(cfg.fast_thresholds[lev]))
-        masks.append(is_c)
-        scores.append(sc)
-    corner_mask = levelops.pack_atlas(masks)
-    counts = torch.stack([torch.sum(m.to(torch.int32)) for m in masks])
-    return pyramid, atlas, corner_mask, tuple(scores), counts
+    corner_mask, score_atlas, counts = fastops.fast_atlas(
+        atlas, cfg.fast_thresholds, scores=scores)
+    if not scores:
+        return pyramid, atlas, corner_mask, None, None
+    h, w = im.shape
+    maps = tuple(levelops.unpack_level(score_atlas, lev, h, w)
+                 for lev in range(LEVELS))
+    return pyramid, atlas, corner_mask, maps, counts
 
 
 def make_frame_rest(pyramid: Tuple[Tensor, ...], scores: Tuple[Tensor, ...],
@@ -123,7 +127,8 @@ def build_frame_tracking(im: Tensor, cfg: FrontendConfig = FrontendConfig(),
     """Pyramid atlas + corner mask + both SBIs of one (H, W) float32 frame."""
     if cfg.atlas_bf16:
         raise NotImplementedError("FrontendConfig.atlas_bf16 is not ported")
-    pyramid, atlas, corner_mask, _, _ = make_frame_lite(im, cfg)
+    pyramid, atlas, corner_mask, _, _ = make_frame_lite(im, cfg,
+                                                        scores=False)
     return TrackFeatures(atlas=atlas, corner_mask=corner_mask,
                          sbi=sbiops.make_sbi(pyramid[3], sbi_blur),
                          sbi_track=sbiops.make_sbi(pyramid[3], track_blur))

@@ -20,7 +20,7 @@ from typing import Tuple
 
 import torch
 
-from ptam_cg_tpu.config import LEVELS
+from ptam_cg_tpu_torch.config import LEVELS
 from ptam_cg_tpu_torch.camera import atan
 from ptam_cg_tpu_torch.models.keyframe import (CAND_CAP, NONMAX_CAP,
                                                FrameFeatures, TrackFeatures)
@@ -81,7 +81,7 @@ class MapState:
 
 
 def empty_map(image_size: Tuple[int, int], max_points: int = 2048,
-              max_kfs: int = 32, device=None) -> MapState:
+              max_kfs: int = 32, device="cuda") -> MapState:
     """An all-invalid map (Map::Reset)."""
     W, H = image_size
     Ha = H + H // 2

@@ -192,9 +192,9 @@ def add_points_epipolar(m: MapState, src_kf, tgt_kf, level: int,
     # --- ZMSSD of every (candidate, corner) pair: one matrix product.
     tgt_atlas = ms.kf_row(m.kf_atlas, tgt_kf)
     corner_atlas = levelops.atlas_pos(corners, lev_n, H, W)
-    origin = torch.stack([corner_atlas[:, 1].to(torch.int32) - 4,
-                          corner_atlas[:, 0].to(torch.int32) - 4], -1)
-    I = gather_windows(tgt_atlas, origin, 8).reshape(N, 64)
+    origin = corner_atlas.to(torch.int32) - 4                   # (x, y)
+    I = gather_windows(tgt_atlas, origin[:, 1], origin[:, 0],
+                       8).reshape(N, 64)
     T = templates.reshape(C, 64)
     SA = torch.sum(T, dim=-1)
     SB = torch.sum(I, dim=-1)

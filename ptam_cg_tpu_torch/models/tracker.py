@@ -28,7 +28,7 @@ import math
 
 import torch
 
-from ptam_cg_tpu.config import FrontendConfig, LEVELS, TrackerConfig
+from ptam_cg_tpu_torch.config import FrontendConfig, LEVELS, TrackerConfig
 from ptam_cg_tpu_torch.camera import atan
 from ptam_cg_tpu_torch.models import keyframe as kflib
 from ptam_cg_tpu_torch.models import map_state as ms

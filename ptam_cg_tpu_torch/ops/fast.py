@@ -1,7 +1,9 @@
 """FAST-10 corner detection, non-max suppression and fixed-capacity corner
 lists (port of ``ptam_cg_tpu.ops.fast``).
 
-The FAST score map lives beside its Hopper kernel in ``kernels/fast.py``.
+The FAST score map (every level of a pyramid atlas in one launch, and the
+plain one-image function) lives beside its Hopper kernel in
+``kernels/fast.py``.
 The corner lists follow ``jax.lax.top_k``'s order exactly: descending
 score, equal scores in index order (a stable descending sort; ``torch.topk``
 does not promise that order), and within a tile the first maximum.
@@ -13,9 +15,8 @@ from typing import NamedTuple
 
 import torch
 
-from ptam_cg_tpu_torch.kernels.fast import (ARC, CIRCLE,  # noqa: F401
-                                            fast_score_map,
-                                            fast_score_map_plain)
+from ptam_cg_tpu_torch.kernels.fast import (  # noqa: F401
+    ARC, CIRCLE, fast_atlas, fast_score_map_plain)
 
 Tensor = torch.Tensor
 

@@ -16,7 +16,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from ptam_cg_tpu.config import LEVELS
+from ptam_cg_tpu_torch.config import LEVELS
 from ptam_cg_tpu_torch.ops import image as imops
 
 Tensor = torch.Tensor

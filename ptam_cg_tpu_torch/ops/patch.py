@@ -7,7 +7,7 @@
    one-hot matmuls; the window gate ``in_win`` it implies is kept, since
    it changes which points are attempted.
 3. ``ssd_search``: dense windowed ZMSSD over (2r+1)^2 candidates from one
-   image window and one corner-mask window per point (both K2).
+   image window and one corner-mask window per point (one K2 launch).
 4. ``subpix_refine``: inverse-composition refinement on the search
    windows, or on windows it gathers from the atlas (K2), re-based with a
    direct indexed load (the JAX package uses a
@@ -23,8 +23,8 @@ import dataclasses
 
 import torch
 
-from ptam_cg_tpu.config import LEVELS, PATCH_SIZE
-from ptam_cg_tpu_torch.ops.gather import gather_windows
+from ptam_cg_tpu_torch.config import LEVELS, PATCH_SIZE
+from ptam_cg_tpu_torch.ops.gather import gather_window_pair, gather_windows
 
 Tensor = torch.Tensor
 
@@ -127,8 +127,8 @@ def make_warped_templates(kf_atlases: Tensor, kf_idx: Tensor,
     ox = torch.clamp(c[:, 0] - S // 2, 0, Wa - S)
     oy_lvl = torch.clamp(c[:, 1] - S // 2, 0, Ha - S)
     oy = kf_idx.to(torch.int64) * Ha + oy_lvl
-    win = gather_windows(kf_atlases.reshape(K * Ha, Wa),
-                         torch.stack([oy, ox], -1), S)      # (N, S, S)
+    win = gather_windows(kf_atlases.reshape(K * Ha, Wa), oy, ox,
+                         S)                                 # (N, S, S)
 
     lx = pts[..., 0] - ox[:, None].to(torch.float32)
     ly = pts[..., 1] - oy_lvl[:, None].to(torch.float32)
@@ -201,9 +201,8 @@ def ssd_search(atlas: Tensor, corner_mask: Tensor, templates: Tensor,
     base = torch.round(centers).to(torch.int64)
     origin_x = torch.clamp(base[:, 0] - r_win - ph, 0, Wa - D)
     origin_y = torch.clamp(base[:, 1] - r_win - ph, 0, Ha - D)
-    win = gather_windows(atlas, torch.stack([origin_y, origin_x], -1), D)
-    cmask = gather_windows(corner_mask,
-                           torch.stack([origin_y + ph, origin_x + ph], -1), M)
+    win, cmask = gather_window_pair(atlas, corner_mask, origin_y, origin_x,
+                                    D, ph, M)
 
     SA_t = torch.sum(templates, dim=(-2, -1))
     SSQ_t = torch.sum(templates * templates, dim=(-2, -1))
@@ -278,7 +277,7 @@ def subpix_refine(atlas: Tensor, templates: Tensor, pos0: Tensor,
         c0 = torch.round(pos0).to(torch.int64)
         org_x = torch.clamp(c0[:, 0] - ph - MARGIN, 0, Wa - D)
         org_y = torch.clamp(c0[:, 1] - ph - MARGIN, 0, Ha - D)
-        windows = gather_windows(atlas, torch.stack([org_y, org_x], -1), D)
+        windows = gather_windows(atlas, org_y, org_x, D)
         win_origin = torch.stack([org_x, org_y], -1).to(torch.float32)
     Q = P - 2
     dev = templates.device

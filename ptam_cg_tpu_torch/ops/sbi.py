@@ -122,7 +122,7 @@ def se3_from_se2(se2: SE2, cam_params: Tensor,
     points through an SBI-sized camera and Gauss-Newton a 3-DoF SO3."""
     h, w = sbi_size
     dev = se2.R.device
-    cam = atan.make_camera(cam_params, (w, h))
+    cam = atan.make_camera(cam_params, (w, h), dev)
     # Built from device fills: an indexed store of a Python number into a
     # CUDA tensor is a host-to-device copy, which syncs.
     cx = torch.full((), w / 2, dtype=torch.float32, device=dev)

@@ -62,7 +62,8 @@ def _tied_scores(shape, seed):
 @pytest.fixture(scope="module")
 def frame():
     seq = tsynth.SyntheticSequence(REF_PARAMS, image_size=SIZE, n_frames=4,
-                                   seed=7, height=1.5, radius=0.2, sweep=0.6)
+                                   seed=7, height=1.5, radius=0.2, sweep=0.6,
+                                   device="cpu")
     return seq.frame(1).numpy()
 
 

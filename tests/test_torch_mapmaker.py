@@ -129,14 +129,15 @@ def _jax_integrate(scene):
 
 
 def _port_integrate(scene, diag):
-    mt = {k: fj.tensor(v) for k, v in scene["meas"].items()}
+    mt = {k: fj.tensor(v, "cpu") for k, v in scene["meas"].items()}
     return tmapmaker.integrate_keyframe_program(
-        fj.map_state_from_numpy(fj.as_numpy_tree(scene["m"])),
-        fj.frame_features_from_numpy(fj.as_numpy_tree(scene["ff2"])),
-        fj.se3_from_numpy(fj.as_numpy_tree(scene["pose2"])), mt["point"],
+        fj.map_state_from_numpy(fj.as_numpy_tree(scene["m"]), "cpu"),
+        fj.frame_features_from_numpy(fj.as_numpy_tree(scene["ff2"]), "cpu"),
+        fj.se3_from_numpy(fj.as_numpy_tree(scene["pose2"]), "cpu"),
+        mt["point"],
         mt["pos"], mt["level"], mt["subpix"], mt["valid"], torch.tensor(1.5),
         torch.tensor(0.1), torch.zeros(P, dtype=torch.bool),
-        fj.camera_from_numpy(fj.as_numpy_tree(scene["seq"].cam)), SIZE,
+        fj.camera_from_numpy(fj.as_numpy_tree(scene["seq"].cam), "cpu"), SIZE,
         WIGGLE, THIN, diag=diag)
 
 
@@ -191,12 +192,13 @@ def test_keyframe_helpers_match_jax(scene):
     jm = map_state.set_measurements(
         jm, 1, mt["point"], mt["pos"], mt["level"], mt["subpix"],
         jnp.full(P, map_state.SRC_TRACKER, jnp.int32), mt["valid"])
-    tm = fj.map_state_from_numpy(fj.as_numpy_tree(m))
-    tpose = fj.se3_from_numpy(fj.as_numpy_tree(pose2))
+    tm = fj.map_state_from_numpy(fj.as_numpy_tree(m), "cpu")
+    tpose = fj.se3_from_numpy(fj.as_numpy_tree(pose2), "cpu")
     tm = tms.insert_keyframe(
-        tm, 1, fj.frame_features_from_numpy(fj.as_numpy_tree(ff2)), tpose,
+        tm, 1, fj.frame_features_from_numpy(fj.as_numpy_tree(ff2), "cpu"),
+        tpose,
         1.4, 0.2)
-    tmt = {k: fj.tensor(v) for k, v in mt.items()}
+    tmt = {k: fj.tensor(v, "cpu") for k, v in mt.items()}
     tm = tms.set_measurements(
         tm, 1, tmt["point"], tmt["pos"], tmt["level"], tmt["subpix"],
         torch.full((P,), tms.SRC_TRACKER, dtype=torch.int32), tmt["valid"])
@@ -216,7 +218,7 @@ def test_keyframe_helpers_match_jax(scene):
         np.testing.assert_allclose(float(sigma), float(sigma_ref), atol=5e-5)
     pose = se3lib.mul(se3lib.se3_exp(jnp.array([0.03, 0, 0, 0, 0.01, 0])),
                       pose2)
-    tpose = fj.se3_from_numpy(fj.as_numpy_tree(pose))
+    tpose = fj.se3_from_numpy(fj.as_numpy_tree(pose), "cpu")
     np.testing.assert_allclose(
         float(tms.kf_linear_dist(tm, tpose, 1.5, 0)),
         float(map_state.kf_linear_dist(jm, pose, 1.5, 0)), rtol=1e-5)
@@ -232,7 +234,8 @@ def test_candidate_map_scene_is_consistent():
     keyframe 0 that the point reprojects onto (a float32 round trip
     through the ATAN camera, 0.05 px: 0.015 at the image corners)."""
     seq = tsynth.SyntheticSequence(REF_PARAMS, image_size=SIZE, n_frames=2,
-                                   seed=7, height=1.5, radius=0.2, sweep=0.6)
+                                   seed=7, height=1.5, radius=0.2, sweep=0.6,
+                                   device="cpu")
     m, ff0 = tsynth.candidate_map_scene(seq, max_points=2048, max_kfs=K)
     ok = m.point_valid
     per_level = torch.bincount(m.point_src_level[ok].long(), minlength=4)

@@ -60,7 +60,7 @@ def rng(seed):
 
 
 def T(a):
-    return fj.tensor(a)
+    return fj.tensor(a, "cpu")
 
 
 def close(got, ref, **kw):
@@ -69,7 +69,7 @@ def close(got, ref, **kw):
 
 @pytest.fixture(scope="module")
 def texture():
-    return tsynth.make_texture(rng(11)).numpy()
+    return tsynth.make_texture(rng(11), device="cpu").numpy()
 
 
 # ---------------------------------------------------------------- se3
@@ -195,8 +195,9 @@ def test_triangulate_matches_jax():
     pa = pts @ R.T + t
     v2a = (pa[:, :2] / pa[:, 2:]).astype(np.float32)
     v2b = (pts[:, :2] / pts[:, 2:]).astype(np.float32)
-    got = tgeometry.triangulate(fj.se3_from_numpy(fj.as_numpy_tree(a_from_b)),
-                                T(v2a), T(v2b)).numpy()
+    got = tgeometry.triangulate(
+        fj.se3_from_numpy(fj.as_numpy_tree(a_from_b), "cpu"), T(v2a),
+        T(v2b)).numpy()
     ref = jax.jit(geometry.triangulate)(a_from_b, jnp.asarray(v2a),
                                         jnp.asarray(v2b))
     assert np.isfinite(got).all()
@@ -230,7 +231,7 @@ def test_atan_matches_jax(params, size):
 
     cam, proj, unproj, derivs, valid = jax.jit(ref)(
         jnp.asarray(params, jnp.float32), jnp.asarray(xy), jnp.asarray(pix))
-    tcam = tatan.make_camera(params, size)
+    tcam = tatan.make_camera(params, size, "cpu")
     ref = fj.as_numpy_tree(cam)
     for f in ("focal", "center", "inv_focal", "w", "two_tan", "winv",
               "one_over_2tan", "distortion_enabled", "largest_radius",
@@ -304,8 +305,8 @@ def test_sbi_matches_jax(texture):
         close(s.template, s_ref.template, atol=1e-4)
         close(s.jac, s_ref.jac, atol=1e-4)
     rot, score = tsbiops.calc_sbi_rotation(
-        fj.sbi_from_numpy(fj.as_numpy_tree(moving)),
-        fj.sbi_from_numpy(fj.as_numpy_tree(target)),
+        fj.sbi_from_numpy(fj.as_numpy_tree(moving), "cpu"),
+        fj.sbi_from_numpy(fj.as_numpy_tree(target), "cpu"),
         torch.tensor(REF_PARAMS), (30, 40), 10)
     assert np.abs(np.asarray(rot_ref.R) - np.eye(3)).max() > 1e-3
     close(rot.R, rot_ref.R, atol=1e-5)
@@ -324,7 +325,7 @@ def test_search_level_and_warp_matches_jax():
     right = r.normal(0, 2e-3, (N, 3)).astype(np.float32)
     down = r.normal(0, 2e-3, (N, 3)).astype(np.float32)
     cd = tatan.project_derivs(T(p_cam[:, :2] / p_cam[:, 2:]),
-                              tatan.make_camera(REF_PARAMS, (640, 480)))
+                              tatan.make_camera(REF_PARAMS, (640, 480), "cpu"))
     cd = cd.numpy()
     w = tpatchops.search_level_and_warp(T(p_cam), T(R), T(right), T(down),
                                         T(cd))
@@ -364,7 +365,7 @@ def _search_inputs(texture, r_win, seed):
     positions plus a sub-pixel shift, and predictions 0-3 px off."""
     r = rng(seed)
     im = texture[40:160, 60:220].copy()
-    mask, _ = tfast.fast_score_map(T(im), 10.0)
+    mask, _ = tfast.fast_score_map_plain(T(im), 10.0)
     N = 96
     true = np.stack([r.integers(20, 140, N), r.integers(20, 100, N)],
                     -1).astype(np.float32)

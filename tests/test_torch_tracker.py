@@ -51,7 +51,8 @@ class _Sequence:
             jnp.asarray(REF_PARAMS, jnp.float32))
         self.poses = jax.jit(synth.orbit_trajectory, static_argnums=0)(
             8, 1.5, 0.12, 0.6)
-        tex = jnp.asarray(tsynth.make_texture(np.random.default_rng(3)).numpy())
+        tex = jnp.asarray(tsynth.make_texture(np.random.default_rng(3),
+                                              device="cpu").numpy())
         self._render = jax.jit(lambda R, t: synth.render_plane(
             self.cam, se3lib.SE3(R, t), tex, SIZE))
 
@@ -117,14 +118,14 @@ def scene():
                           jnp.asarray(np.concatenate(ctr), jnp.float32),
                           jnp.asarray(np.concatenate(lv), jnp.int32))
     return dict(seq=seq, cam=cam, m=m, ff0=tf0,
-                tm=fj.map_state_from_numpy(fj.as_numpy_tree(m)),
-                tcam=fj.camera_from_numpy(fj.as_numpy_tree(cam)))
+                tm=fj.map_state_from_numpy(fj.as_numpy_tree(m), "cpu"),
+                tcam=fj.camera_from_numpy(fj.as_numpy_tree(cam), "cpu"))
 
 
 def _uniforms(key, P):
     k_coarse, k_fine = jax.random.split(key)
-    return (fj.tensor(jax.random.uniform(k_coarse, (P,))),
-            fj.tensor(jax.random.uniform(k_fine, (P,))))
+    return (fj.tensor(jax.random.uniform(k_coarse, (P,)), "cpu"),
+            fj.tensor(jax.random.uniform(k_fine, (P,)), "cpu"))
 
 
 def _assert_same_tracking(jres, tres):
@@ -159,8 +160,9 @@ def test_track_map_matches_jax(scene):
         m, frame, pose, key)
     rc, rf = _uniforms(key, P)
     tres = ttracker.track_map(
-        scene["tm"], fj.track_features_from_numpy(fj.as_numpy_tree(frame)),
-        fj.se3_from_numpy(fj.as_numpy_tree(pose)), scene["tcam"], SIZE,
+        scene["tm"],
+        fj.track_features_from_numpy(fj.as_numpy_tree(frame), "cpu"),
+        fj.se3_from_numpy(fj.as_numpy_tree(pose), "cpu"), scene["tcam"], SIZE,
         torch.tensor(1.0), torch.tensor(False), rand_coarse=rc, rand_fine=rf)
     assert bool(jres.did_coarse) and bool(tres.did_coarse)
     assert int(np.asarray(jres.meas_valid).sum()) > 100
@@ -179,9 +181,11 @@ def test_track_frame_from_image_matches_jax(scene):
     _, k_frame = jax.random.split(state.key)
     rc, rf = _uniforms(k_frame, P)
     tout = ttracker.track_frame_from_image(
-        fj.tracker_state_from_numpy(fj.as_numpy_tree(state)), scene["tm"],
-        fj.tensor(im),
-        fj.sbi_from_numpy(fj.as_numpy_tree(ff0.sbi_track)), scene["tcam"],
+        fj.tracker_state_from_numpy(fj.as_numpy_tree(state), "cpu"),
+        scene["tm"],
+        fj.tensor(im, "cpu"),
+        fj.sbi_from_numpy(fj.as_numpy_tree(ff0.sbi_track), "cpu"),
+        scene["tcam"],
         SIZE, torch.tensor(REF_PARAMS), rand_coarse=rc, rand_fine=rf)
     _assert_same_tracking(jout.result, tout.result)
     assert int(tout.state.quality) == int(jout.state.quality)
@@ -199,15 +203,16 @@ def test_five_frame_run_stays_good(scene):
     tests/test_tracker.py (0.02 camera centre, 0.01 rad)."""
     seq = scene["seq"]
     state = fj.tracker_state_from_numpy(
-        fj.as_numpy_tree(tracker.init_tracker_state(seq.pose(0))), seed=1)
-    prev = fj.sbi_from_numpy(fj.as_numpy_tree(scene["ff0"].sbi_track))
+        fj.as_numpy_tree(tracker.init_tracker_state(seq.pose(0))), seed=1,
+        device="cpu")
+    prev = fj.sbi_from_numpy(fj.as_numpy_tree(scene["ff0"].sbi_track), "cpu")
     cam_params = torch.tensor(REF_PARAMS)
     for i in range(1, 6):
         out = ttracker.track_frame_from_image(
-            state, scene["tm"], fj.tensor(seq.frame(i)),
+            state, scene["tm"], fj.tensor(seq.frame(i), "cpu"),
             prev, scene["tcam"], SIZE, cam_params)
         state, prev = out.state, out.sbi_track
-        gt = fj.se3_from_numpy(fj.as_numpy_tree(seq.pose(i)))
+        gt = fj.se3_from_numpy(fj.as_numpy_tree(seq.pose(i)), "cpu")
         rel = tse3.mul(state.pose, tse3.inv(gt))
         rot_err = float(torch.linalg.vector_norm(tse3.so3_log(rel.R)))
         c_est = -state.pose.R.T @ state.pose.t
