@@ -5,12 +5,18 @@ NVIDIA GPU.
 
 Phases, each fatal on failure:
 1. device: the card's name and power limit; build the three CUDA kernels
-   (``ptam_cg_tpu_torch/csrc``) with nvcc for sm_90a, one nvcc each, all
-   at once;
+   (``ptam_cg_tpu_torch/csrc``) and phase 2c's variants of K3 with nvcc
+   for sm_90a, one nvcc each, all at once;
 2. K1 (FAST-10) against its plain PyTorch version over the pyramid atlas
    of a 640x480 frame, in one launch: mask atlas, scores and per-level
    counts bit-identical, with and without the scores;
-2b. K3 (Shi-Tomasi) on the 4 pyramid levels: bit-identical;
+2b. K3 (Shi-Tomasi) over the pyramid atlas of the 640x480 frame and over
+   an atlas with bright borders in every level and in the unused area,
+   in one launch: bit-identical; and the host time a call of the K3 and
+   K2 wrappers (and of the wrapper's parts), over 200 back-to-back calls;
+2c. K3's tile-shape variants (off the main path): each built with its
+   ``-D`` defines, bit-identical on both atlases, timed on the 640x480
+   atlas (profiler device us, two rounds in opposite orders);
 3. K2 (window gather) against its plain version at the window shapes of
    the tracking and keyframe paths, f32 and bool, int64 and int32 origin
    columns, strided and contiguous, and the pair entry (image and mask
@@ -37,7 +43,7 @@ Phases, each fatal on failure:
    z=0 plane (median |z| < 0.02) and frames 41..60 must track GOOD within
    the phase-4 bars against the grown map, finding some new points. The
    launch counts of the whole phase must equal those the code makes
-   (the keyframe: 1 K1, 4 K3 and 14 K2).
+   (the keyframe: 1 K1, 1 K3 and 14 K2).
    ``build_frame`` and the integration are timed;
 7. the integration of phase 6 on the card and on the CPU from the same
    map, features and measurements: the same re-found set and new points
@@ -66,6 +72,11 @@ POS_TOL = 1e-3
 REPS = 25
 INT_REPS = 10
 KERNELS = ("fast10", "gather_windows", "shi_tomasi")
+# Phase 2c: K3's tile shapes (output columns x rows a block, pixels a
+# thread along x); () is the default build, the keyframe path's.
+ST_VARIANTS = ((), ("ST_TILE_H=32",), ("ST_PX=1",),
+               ("ST_TILE_W=32", "ST_PX=1"), ("ST_TILE_W=128", "ST_PX=4"))
+HOST_CALLS = 200
 # The bound of a kernel call: H100 SXM HBM rate and float32 peak outside
 # the tensor cores (NVIDIA's data sheet, at 700 W); one add, subtract,
 # compare, min, max, multiply, divide or root counts as one operation.
@@ -133,6 +144,39 @@ def device_us(fn, torch, n=20, match=None, setup=None, tries=3):
         if count:
             return total / n, count / n
     return None, 0
+
+
+def host_us(fn, torch, n=HOST_CALLS):
+    """Host time (us) a call over ``n`` back-to-back calls and one sync."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def bordered_atlas(size, seed, dev):
+    """A pyramid atlas whose levels hold noise inside a 3-px border of 0
+    with bright dots (255) one pixel in from each edge, in an unused area
+    of 0 with bright dots: a score that read across a level's edge, or
+    any nonzero score outside the levels' inner pixels, would differ."""
+    import numpy as np
+    import torch
+    from ptam_cg_tpu_torch.kernels import fast as kfast
+    w, h = size
+    r = np.random.default_rng(seed)
+    shape = (h * 3 // 2, w)
+    atlas = np.where(r.uniform(size=shape) < 0.01, 255.0, 0.0).astype(
+        np.float32)
+    for (r0, c0, hl, wl) in kfast.level_rects(shape):
+        lev = np.zeros((hl, wl), np.float32)
+        lev[3:-3, 3:-3] = r.uniform(0, 120, (hl - 6, wl - 6))
+        lev[[1, -2], 2:-2:5] = 255.0
+        lev[2:-2:5, [1, -2]] = 255.0
+        atlas[r0: r0 + hl, c0: c0 + wl] = lev
+    return torch.from_numpy(atlas).to(dev)
 
 
 def fmt_us(us):
@@ -219,13 +263,17 @@ def main():
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    _build.load_all(KERNELS)
-    print(f"[1] built and loaded {len(KERNELS)} kernels in "
+    builds = [(name, ()) for name in KERNELS] + [
+        ("shi_tomasi", v) for v in ST_VARIANTS if v]
+    _build.load_all(builds)
+    print(f"[1] built and loaded {len(KERNELS)} kernels and "
+          f"{len(builds) - len(KERNELS)} variants of K3 in "
           f"{time.perf_counter() - t0:.1f} s")
-    for name in KERNELS:
-        seconds, log = _build.build_info(name)
+    for name, v in builds:
+        seconds, log = _build.build_info(name, v)
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-        print(f"[1] {name}: nvcc {seconds:.1f} s; {' | '.join(regs)}")
+        print(f"[1] {name} {' '.join(v)}: nvcc {seconds:.1f} s; "
+              f"{' | '.join(regs)}")
 
     def entry(name, source, replaces, per_frame, per_keyframe, library):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -247,7 +295,7 @@ def main():
             "ptam_cg_tpu/ops/pallas_gather.py:50", 4, 2 + 3 * 4, True),
         "shi_tomasi": entry("shi_tomasi",
                             "ptam_cg_tpu_torch/csrc/shi_tomasi.cu",
-                            "ptam_cg_tpu/ops/pallas_kernels.py:326", 0, 4,
+                            "ptam_cg_tpu/ops/pallas_kernels.py:326", 0, 1,
                             False)}
 
     def add_row(k, ms_k, plain, dev_k, nbytes, ops, lib=None, err=0.0):
@@ -326,26 +374,81 @@ def main():
 
     # ---- 2b. K3 against its plain version ----
     k = kernels["shi_tomasi"]
-    for lev, im in enumerate(pyramid):
-        got = kshi.shi_tomasi_score_map(im)
-        ref = kshi.shi_tomasi_score_map_plain(im)
-        err = max_abs_diff(got, ref)
+    st_atlases = ((f"{SIZE[0]}x{SIZE[1]} frame", atlas),
+                  ("bordered", bordered_atlas(SIZE, 4, dev)))
+    err = 0.0
+    for what, a in st_atlases:
+        ref = kshi.shi_tomasi_atlas_plain(a)
+        before = kshi.launches
+        got = kshi.shi_tomasi_atlas(a)
+        err = max(err, max_abs_diff(got, ref))
+        check(kshi.launches == before + 1,
+              "K3 did not make exactly one launch")
         check(torch.equal(got, ref),
-              f"K3 differs from its plain version at level {lev}: {err}, "
-              f"{int((got != ref).sum())} pixels")
-        ms_k = time_ms(lambda _: kshi.shi_tomasi_score_map(im), torch)
-        plain = time_ms(lambda _: kshi.shi_tomasi_score_map_plain(im), torch)
-        dev_k, _ = device_us(lambda _: kshi.shi_tomasi_score_map(im), torch,
-                             match="shi_tomasi")
-        dev_p, n_p = device_us(lambda _: kshi.shi_tomasi_score_map_plain(im),
-                               torch)
-        nbytes, ops = im.numel() * 8, im.numel() * SHI_OPS
-        add_row(k, ms_k, plain, dev_k, nbytes, ops, err=err)
-        print(f"[2b] K3 level {lev} {tuple(im.shape)}: bit-identical, "
-              f"{int((got > CAND_MIN).sum())} px above {CAND_MIN}; kernel "
-              f"{ms_k:.4f} ms, plain {plain:.4f} ms; device: kernel "
-              f"{fmt_us(dev_k)}, plain {fmt_us(dev_p)} ({n_p:.0f} kernels); "
-              f"{bound_text(nbytes, ops)}; launches a keyframe 1  [{card}]")
+              f"K3 differs from its plain version on the {what} atlas: "
+              f"{err}, {int((got != ref).sum())} pixels")
+        print(f"[2b] K3 {what} atlas {tuple(a.shape)}: bit-identical in one "
+              f"launch; {int((ref > CAND_MIN).sum())} px above {CAND_MIN}")
+    call = lambda _: kshi.shi_tomasi_atlas(atlas)      # noqa: E731
+    plain_call = lambda _: kshi.shi_tomasi_atlas_plain(atlas)  # noqa: E731
+    ms_k = time_ms(call, torch)
+    plain = time_ms(plain_call, torch)
+    dev_k, n_k = device_us(call, torch, match="shi_tomasi")
+    dev_p, n_p = device_us(plain_call, torch)
+    # Read: the levels' pixels; written: the score atlas, each once.
+    n_levels = sum(im.numel() for im in pyramid)
+    nbytes, ops = (n_levels + atlas.numel()) * 4, n_levels * SHI_OPS
+    add_row(k, ms_k, plain, dev_k, nbytes, ops, err=err)
+    print(f"[2b] K3 one call over the atlas: kernel {ms_k:.4f} ms, plain "
+          f"{plain:.4f} ms (CUDA events); device: kernel {fmt_us(dev_k)} in "
+          f"{n_k:.0f} launch, plain {fmt_us(dev_p)} ({n_p:.0f} kernels); "
+          f"{bound_text(nbytes, ops)} (the levels' pixels read and written "
+          f"alone: {bound_text(n_levels * 8, ops)}); launches a keyframe 1"
+          f"  [{card}]")
+
+    # The wrappers' host path: what a call costs the host, whole and in
+    # parts (K3's checks and level table are the rest).
+    fn = kshi._lib()
+    out = torch.empty_like(atlas)
+    rects = kshi._rects_arg(tuple(atlas.shape))
+    stream = _build.stream_handle(atlas)
+    gen = torch.Generator().manual_seed(5)
+    g_org = torch.stack([
+        torch.randint(0, atlas.shape[0] - 15, (512,), generator=gen),
+        torch.randint(0, atlas.shape[1] - 15, (512,), generator=gen)],
+        -1).to(dev)
+    parts = {
+        "shi_tomasi_atlas": lambda: kshi.shi_tomasi_atlas(atlas),
+        "gather_windows N=512 D=15": lambda: kgather.gather_windows(
+            atlas, g_org[:, 0], g_org[:, 1], 15),
+        "K3 ctypes call alone": lambda: fn(atlas.data_ptr(), *atlas.shape,
+                                           rects, out.data_ptr(), stream),
+        "torch.empty": lambda: torch.empty_like(atlas),
+        "_build.stream_handle": lambda: _build.stream_handle(atlas),
+    }
+    times = "; ".join(f"{name} {host_us(f, torch):.2f}"
+                      for name, f in parts.items())
+    print(f"[2b] host us a call ({HOST_CALLS} back-to-back calls, one sync): "
+          f"{times}  [{card}]")
+
+    # ---- 2c. K3 tile-shape variants (off the main path) ----
+    sweep = {v: [] for v in ST_VARIANTS}
+    for v in ST_VARIANTS:
+        for what, a in st_atlases:
+            check(torch.equal(kshi.shi_tomasi_atlas(a, defines=v),
+                              kshi.shi_tomasi_atlas_plain(a)),
+                  f"K3 variant {v} differs from the plain version ({what})")
+    for order in (ST_VARIANTS, ST_VARIANTS[::-1]):
+        for v in order:
+            sweep[v].append(device_us(
+                lambda _, v=v: kshi.shi_tomasi_atlas(atlas, defines=v),
+                torch, match="shi_tomasi")[0])
+    for v, (a_us, b_us) in sweep.items():
+        ms_v = time_ms(lambda _, v=v: kshi.shi_tomasi_atlas(atlas, defines=v),
+                       torch)
+        print(f"[2c] K3 {' '.join(v) or 'default'}: bit-identical on both "
+              f"atlases; device {fmt_us(a_us)} / {fmt_us(b_us)} (two rounds), "
+              f"{ms_v:.4f} ms (CUDA events)  [{card}]")
 
     # ---- 3. K2 against its plain version ----
     rng = np.random.default_rng(3)
@@ -648,7 +751,7 @@ def main():
     mk2, new_mask, slot_n = integrate(mk, ff, state_kf.pose, res_kf)
     slot, n_added = slot_n.tolist()
     kf_launches = {n: c - before[n] for n, c in launch_counts().items()}
-    # build_frame: FAST over the atlas, Shi-Tomasi on 4 levels. Integration:
+    # build_frame: FAST and Shi-Tomasi over the atlas. Integration:
     # the re-find gathers templates and the search pair; each of the 4
     # epipolar levels templates, corner patches and sub-pixel windows.
     kf_expected = {name: k["launches_per_keyframe"]

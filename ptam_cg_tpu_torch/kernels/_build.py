@@ -8,11 +8,14 @@ alone (no PyTorch headers) in seconds:
          csrc/<name>.cu
 
 (``-Xptxas -v`` only reports registers and shared memory per kernel.)
+A build may add ``-D`` defines (a kernel's tile shape, for a variant
+sweep); they go into the library's name and hash.
 
-The library is named after a hash of the source and the flags, so an edit
-rebuilds it; it is written to a temporary name and renamed, so processes
-building at once never load a half-written file. ``nvcc`` is looked up under
-``$CUDA_HOME`` (default ``/usr/local/cuda``) and then on ``PATH``.
+The library is named after a hash of the source, the flags and the
+defines, so an edit rebuilds it; it is written to a temporary name and
+renamed, so processes building at once never load a half-written file.
+``nvcc`` is looked up under ``$CUDA_HOME`` (default ``/usr/local/cuda``)
+and then on ``PATH``.
 """
 
 from __future__ import annotations
@@ -21,10 +24,12 @@ import concurrent.futures
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Tuple
 
 import torch
 
@@ -35,9 +40,11 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: name -> (loaded library, seconds spent building it in this process,
-#: nvcc's output). Filled at first use of each kernel.
+#: (name, defines) -> (loaded library, seconds spent building it in this
+#: process, nvcc's output). Filled at first use of each build.
 _LOADED: dict = {}
+
+_DEFINE = re.compile(r"[A-Za-z_][A-Za-z0-9_]*(=[A-Za-z0-9_.]+)?")
 
 
 def _nvcc() -> str:
@@ -50,43 +57,58 @@ def _nvcc() -> str:
     return found
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Return the loaded library for ``csrc/<name>.cu``, building it first
-    if no library for this exact source exists yet."""
-    if name in _LOADED:
-        return _LOADED[name][0]
+def library_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
+    """Where the library for ``csrc/<name>.cu`` built with these ``-D``
+    defines (``NAME`` or ``NAME=VALUE``) lives."""
+    for d in defines:
+        if not _DEFINE.fullmatch(d):
+            raise ValueError(f"not a NAME or NAME=VALUE define: {d!r}")
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+                            + " ".join(flags).encode()).hexdigest()[:16]
+    tag = "".join(f"-{d}" for d in defines)
+    return BUILD_DIR / f"lib{name}{tag}-{digest}.so"
+
+
+def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Return the loaded library for ``csrc/<name>.cu`` with these ``-D``
+    defines, building it first if no library for this exact source and
+    these defines exists yet."""
+    key = (name, defines)
+    if key in _LOADED:
+        return _LOADED[key][0]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"lib{name}-{digest}.so"
+    so = library_path(name, defines)
     seconds, log = 0.0, ""
     if not so.is_file():
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+             str(tmp), str(src)], capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
+            raise RuntimeError(f"nvcc failed on {src.name} {defines}:\n{log}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
-    _LOADED[name] = (lib, seconds, log)
+    _LOADED[key] = (lib, seconds, log)
     return lib
 
 
-def load_all(names) -> None:
-    """Build and load several sources at once, one nvcc process each."""
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-        for done in [pool.submit(load, name) for name in names]:
+def load_all(builds) -> None:
+    """Build and load several (name, defines) libraries at once, one nvcc
+    process each."""
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        for done in [pool.submit(load, *b) for b in builds]:
             done.result()
 
 
-def build_info(name: str):
-    """(seconds spent building, nvcc output) for a loaded kernel; zero
-    and empty when the library was already built."""
-    _, seconds, log = _LOADED[name]
+def build_info(name: str, defines: Tuple[str, ...] = ()):
+    """(seconds spent building, nvcc output) for a loaded library; zero
+    and empty when it was already built."""
+    _, seconds, log = _LOADED[(name, defines)]
     return seconds, log
 
 
@@ -96,6 +118,10 @@ def check(status: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {status}")
 
 
-def stream_handle(t: torch.Tensor) -> ctypes.c_void_p:
-    """The current CUDA stream of ``t``'s device, for a C entry point."""
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def stream_handle(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, for a C entry point (a
+    ``c_void_p`` argument). The raw handle, as Triton's launcher reads it:
+    ``torch.cuda.current_stream`` builds a Stream object on every call,
+    about 4.5 us of host time a launch on the host of an H100 80GB HBM3
+    (chip_smoke.py phase 2b)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -2,35 +2,38 @@
 
 Replaces the TPU kernels ``ptam_cg_tpu/ops/pallas_kernels.py``
 ``shi_tomasi_banded`` and ``shi_tomasi_pallas``; the function is
-``ptam_cg_tpu/ops/image.py::shi_tomasi_score_map``. The kernel is bound by
-bytes and, at the keyframe shapes, by its launch (see the note in the
-source); it stages each output tile with its 4-px halo in shared memory
-and keeps the gradient products and their row sums there.
+``ptam_cg_tpu/ops/image.py::shi_tomasi_score_map`` on each pyramid level.
+
+``shi_tomasi_atlas`` scores all four levels of a packed pyramid atlas in
+one launch: each level's score inside its 4-px border, 0 on the borders
+and on the atlas's unused area. It runs the plain version for a CPU
+tensor and the kernel for a CUDA tensor. ``shi_tomasi_score_map_plain``
+is the single-image function, the plain version of each level.
 
 The plain version sums in the order of the banded TPU kernel
 (``pallas_kernels.py:288-307``): gradients, the three products, a row sum
 over dy = 0..6, a column sum over dx = 0..6, then the divide, the
 discriminant and the square root. The kernel does the same with every
 operation separately rounded, so the two are bit-identical.
-
-``shi_tomasi_score_map`` runs the plain version for a CPU tensor and the
-kernel for a CUDA tensor.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Sequence
 
 import torch
 
 from ptam_cg_tpu_torch.kernels import _build
+from ptam_cg_tpu_torch.kernels import fast as kfast
 
 Tensor = torch.Tensor
 
 #: The box half-width the kernel is built for (the keyframe build's).
 HALF_BOX = 3
 
-#: Kernel launches made by ``shi_tomasi_score_map`` in this process.
+#: Kernel launches made by ``shi_tomasi_atlas`` in this process.
 launches = 0
 
 
@@ -77,35 +80,55 @@ def shi_tomasi_score_map_plain(im: Tensor, half_box: int = HALF_BOX) -> Tensor:
     return torch.where(inner, score, 0.0)
 
 
-def _lib():
-    lib = _build.load("shi_tomasi")
-    fn = lib.shi_tomasi_launch
+def shi_tomasi_atlas_plain(atlas: Tensor) -> Tensor:
+    """Plain version of ``shi_tomasi_atlas``: ``shi_tomasi_score_map_plain``
+    on each level's view, packed into zeros."""
+    out = torch.zeros(atlas.shape, dtype=torch.float32, device=atlas.device)
+    for r, c, hl, wl in kfast.level_rects(atlas.shape):
+        out[r: r + hl, c: c + wl] = shi_tomasi_score_map_plain(
+            atlas[r: r + hl, c: c + wl])
+    return out
+
+
+def _lib(defines: Sequence[str] = ()):
+    fn = _build.load("shi_tomasi", tuple(defines)).shi_tomasi_atlas
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def shi_tomasi_score_map(im: Tensor, half_box: int = HALF_BOX) -> Tensor:
-    """Shi-Tomasi score of one (H, W) float32 image."""
-    if im.device.type == "cpu":
-        return shi_tomasi_score_map_plain(im, half_box)
-    if im.device.type != "cuda":
-        raise ValueError(f"shi_tomasi_score_map: unsupported device "
-                         f"{im.device}")
-    if im.dtype != torch.float32 or im.ndim != 2:
-        raise ValueError("shi_tomasi_score_map: need a 2-D float32 image, "
-                         f"got {tuple(im.shape)} {im.dtype}")
-    if half_box != HALF_BOX:
-        raise ValueError(f"shi_tomasi_score_map: the kernel is built for "
-                         f"half_box={HALF_BOX}, got {half_box}")
-    im = im.contiguous()
-    H, W = im.shape
-    out = torch.empty((H, W), dtype=torch.float32, device=im.device)
-    fn = _lib()
+@functools.lru_cache(maxsize=8)
+def _rects_arg(shape):
+    """The level table of an atlas shape as the C entry takes it."""
+    flat = [int(v) for rect in kfast.level_rects(shape) for v in rect]
+    return (ctypes.c_int * len(flat))(*flat)
+
+
+def shi_tomasi_atlas(atlas: Tensor, defines: Sequence[str] = ()) -> Tensor:
+    """Shi-Tomasi score of every level of a (1.5 H, W) float32 pyramid
+    atlas, in the atlas layout. ``defines`` pick another tile shape of the
+    kernel (``ST_TILE_W=..``, ``ST_TILE_H=..``, ``ST_PX=..``; chip_smoke.py
+    phase 2c); the default build is the keyframe path's."""
+    device = atlas.device.type
+    if device == "cpu":
+        return shi_tomasi_atlas_plain(atlas)
+    if device != "cuda" or atlas.dtype != torch.float32 or atlas.ndim != 2:
+        raise ValueError(f"shi_tomasi_atlas: need a 2-D float32 CUDA atlas, "
+                         f"got {tuple(atlas.shape)} {atlas.dtype} on "
+                         f"{atlas.device}")
+    rects = _rects_arg(tuple(atlas.shape))
+    atlas = atlas.contiguous()
+    Ha, Wa = atlas.shape
+    if Wa % 4 or atlas.data_ptr() % 16:
+        raise ValueError(f"shi_tomasi_atlas: the kernel reads 16-byte rows; "
+                         f"width {Wa} is no multiple of 4 or the data "
+                         f"unaligned")
+    out = torch.empty_like(atlas)
+    fn = _lib(defines)
     global launches
     launches += 1
-    _build.check(fn(im.data_ptr(), out.data_ptr(), H, W,
-                    _build.stream_handle(im)), "shi_tomasi_launch")
+    _build.check(fn(atlas.data_ptr(), Ha, Wa, rects, out.data_ptr(),
+                    _build.stream_handle(atlas)), "shi_tomasi_atlas")
     return out

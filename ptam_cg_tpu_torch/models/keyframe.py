@@ -7,7 +7,7 @@
 (MakeKeyFrame_Rest). FAST runs through kernel K1, one launch over the
 whole pyramid atlas (the per-frame build asks it for the corner mask
 alone; the keyframe build also for the scores and the corner counts), and
-Shi-Tomasi through kernel K3, one launch per level.
+Shi-Tomasi through kernel K3, one launch over the atlas.
 """
 
 from __future__ import annotations
@@ -77,11 +77,12 @@ def make_frame_lite(im: Tensor, cfg: FrontendConfig = FrontendConfig(),
 
 
 def make_frame_rest(pyramid: Tuple[Tensor, ...], scores: Tuple[Tensor, ...],
+                    st_maps: Tuple[Tensor, ...],
                     candidate_min_score: float = 400.0,
                     sbi_blur: float = 2.5):
     """Per level: the non-max corner list, and the candidates (non-max
     corners at least 10 px inside a level larger than 20x20, Shi-Tomasi
-    score above ``candidate_min_score``; kernel K3); then the SBI.
+    score ``st_maps[lev]`` above ``candidate_min_score``); then the SBI.
     Returns ((max_xy, max_score, max_valid), (cand_xy, cand_score,
     cand_valid), SBI), the lists stacked over levels."""
     maxes, cands = [], []
@@ -89,7 +90,7 @@ def make_frame_rest(pyramid: Tuple[Tensor, ...], scores: Tuple[Tensor, ...],
         keep = fastops.nonmax_3x3(scores[lev])
         maxes.append(fastops.corners_from_mask(keep, scores[lev], NONMAX_CAP,
                                                tile=2))
-        st = imops.shi_tomasi_score_map(pyramid[lev], half_box=3)
+        st = st_maps[lev]
         hl, wl = pyramid[lev].shape
         border = torch.zeros((hl, wl), dtype=torch.bool, device=st.device)
         if hl > 20 and wl > 20:
@@ -112,8 +113,12 @@ def build_frame(im: Tensor, cfg: FrontendConfig = FrontendConfig(),
     if cfg.atlas_bf16:
         raise NotImplementedError("FrontendConfig.atlas_bf16 is not ported")
     pyramid, atlas, corner_mask, scores, counts = make_frame_lite(im, cfg)
+    st_atlas = imops.shi_tomasi_atlas(atlas)          # kernel K3
+    h, w = im.shape
+    st_maps = tuple(levelops.unpack_level(st_atlas, lev, h, w)
+                    for lev in range(LEVELS))
     (mx, ms, mv), (cx, cs, cv), the_sbi = make_frame_rest(
-        pyramid, scores, candidate_min_score, sbi_blur)
+        pyramid, scores, st_maps, candidate_min_score, sbi_blur)
     return FrameFeatures(
         atlas=atlas, corner_mask=corner_mask, corner_count=counts,
         max_xy=mx, max_score=ms, max_valid=mv,

@@ -3,10 +3,11 @@ Shi-Tomasi score map (port of ``ptam_cg_tpu.ops.image``). Images are
 float32 (..., H, W) with intensities in [0, 255].
 
 ``box_sum`` and the Shi-Tomasi score live beside their Hopper kernel (K3)
-in ``kernels/shi_tomasi.py``: ``shi_tomasi_score_map`` runs the kernel on
-a CUDA tensor and the plain version on a CPU tensor. Both sum the box in
-the order of the banded TPU kernel, which differs from the JAX package's
-cumsum form by float rounding only.
+in ``kernels/shi_tomasi.py``: ``shi_tomasi_atlas`` scores every level of
+a pyramid atlas in one launch on a CUDA tensor (the plain version on a CPU
+tensor), and ``shi_tomasi_score_map`` is the plain one-image function.
+Both sum the box in the order of the banded TPU kernel, which differs
+from the JAX package's cumsum form by float rounding only.
 """
 
 from __future__ import annotations
@@ -18,9 +19,12 @@ import numpy as np
 import torch
 
 from ptam_cg_tpu_torch.kernels.shi_tomasi import (  # noqa: F401
-    box_sum, shi_tomasi_score_map, shi_tomasi_score_map_plain)
+    box_sum, shi_tomasi_atlas, shi_tomasi_score_map_plain)
 
 Tensor = torch.Tensor
+
+#: The one-image Shi-Tomasi score under the JAX package's name.
+shi_tomasi_score_map = shi_tomasi_score_map_plain
 
 
 def half_sample(im: Tensor) -> Tensor:

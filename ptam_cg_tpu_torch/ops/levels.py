@@ -17,7 +17,6 @@ from typing import Sequence, Tuple
 import torch
 
 from ptam_cg_tpu_torch.config import LEVELS
-from ptam_cg_tpu_torch.ops import image as imops
 
 Tensor = torch.Tensor
 
@@ -76,10 +75,6 @@ def pack_atlas(pyramid: Sequence[Tensor]) -> Tensor:
     for (r, c), lev in zip(level_offsets(h, w), pyramid):
         A[r: r + lev.shape[0], c: c + lev.shape[1]] = lev
     return A
-
-
-def build_atlas(im: Tensor) -> Tensor:
-    return pack_atlas(imops.build_pyramid(im, LEVELS))
 
 
 def unpack_level(atlas: Tensor, level: int, h: int, w: int) -> Tensor:

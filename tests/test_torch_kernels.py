@@ -9,7 +9,8 @@ package's ``make_frame_lite`` (mask atlas, scores, counts), and on an
 atlas whose levels have bright dots in their borders and in the unused
 area, where evaluating a level's edge or reading a neighbouring level
 would make corners. K2's pair entry and its int64 origin columns are
-held to ``gather_windows_rowtake``. The card tests carry the ``cuda``
+held to ``gather_windows_rowtake``. K3's atlas entry takes the same two
+atlases on the card. The card tests carry the ``cuda``
 marker and skip without a GPU. A GPU machine need not have JAX, so the
 JAX references load through the ``jax_ref`` fixture and the card tests
 run with ``python -m pytest tests/test_torch_kernels.py -m cuda
@@ -24,6 +25,7 @@ import torch
 
 from ptam_cg_tpu_torch.config import FrontendConfig
 from ptam_cg_tpu_torch.io import synth as tsynth
+from ptam_cg_tpu_torch.kernels import _build
 from ptam_cg_tpu_torch.kernels import fast as kfast
 from ptam_cg_tpu_torch.kernels import gather as kgather
 from ptam_cg_tpu_torch.kernels import shi_tomasi as kshi
@@ -235,6 +237,34 @@ def test_gather_pair_and_int64_origins_match_rowtake(jax_ref, D):
         np.testing.assert_array_equal(mwin.numpy(), ref_m)
 
 
+def test_build_defines_change_library_name():
+    """A variant build (``-D`` defines) gets a library of its own; the
+    defines are in its name and hash."""
+    base = _build.library_path("shi_tomasi")
+    tall = _build.library_path("shi_tomasi", ("ST_TILE_H=32",))
+    wide = _build.library_path("shi_tomasi", ("ST_TILE_W=128", "ST_PX=4"))
+    assert base.name.startswith("libshi_tomasi-")
+    assert tall.name.startswith("libshi_tomasi-ST_TILE_H=32-")
+    assert wide.name.startswith("libshi_tomasi-ST_TILE_W=128-ST_PX=4-")
+    assert len({base, tall, wide}) == 3
+    assert len({p.name.rsplit("-", 1)[1] for p in (base, tall, wide)}) == 3
+    assert _build.library_path("shi_tomasi", ("ST_TILE_H=32",)) == tall
+    with pytest.raises(ValueError):
+        _build.library_path("shi_tomasi", ("ST_TILE_H=32; rm",))
+
+
+def test_shi_tomasi_atlas_rejects_what_the_kernel_cannot_take():
+    """No fallback: a device other than the CPU or the card, another
+    dtype or a shape that is no pyramid atlas raises."""
+    with pytest.raises(ValueError):
+        kshi.shi_tomasi_atlas(torch.empty((360, 320), device="meta"))
+    with pytest.raises(ValueError):
+        kshi.shi_tomasi_atlas(torch.zeros((359, 320)))
+    before = kshi.launches
+    cpu = kshi.shi_tomasi_atlas(torch.zeros((360, 320)))
+    assert kshi.launches == before and not cpu.any()
+
+
 @pytest.mark.cuda
 def test_fast_kernel_matches_plain_on_card(cuda):
     """All four pyramid levels of a 640x480 image, at the frontend's
@@ -326,16 +356,13 @@ def test_gather_kernel_matches_plain_on_card(cuda, D):
 
 @pytest.mark.cuda
 def test_shi_tomasi_kernel_matches_plain_on_card(cuda):
-    """The four pyramid levels of a 640x480 image, and shapes that are
-    no multiple of the kernel's 32x8 tile."""
-    r = np.random.default_rng(1)
-    im = torch.tensor(r.uniform(0, 255, (480, 640)), dtype=torch.float32,
-                      device=cuda)
-    extra = [torch.tensor(r.uniform(0, 255, s), dtype=torch.float32,
-                          device=cuda) for s in ((37, 53), (9, 9), (61, 200))]
-    for lev in list(timops.build_pyramid(im, 4)) + extra:
+    """One launch per call over the whole atlas, bit-identical; the 360
+    rows of the 320x240 frame's atlas are no multiple of the kernel's
+    16-row tile."""
+    for name, atlas in _atlas_cases(cuda):
         before = kshi.launches
-        got = kshi.shi_tomasi_score_map(lev)
+        got = kshi.shi_tomasi_atlas(atlas)
         assert kshi.launches == before + 1
-        torch.testing.assert_close(got, kshi.shi_tomasi_score_map_plain(lev),
-                                   rtol=0, atol=0)
+        ref = kshi.shi_tomasi_atlas_plain(atlas)
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+        assert int((ref > 50.0).sum()) > 0, name

@@ -1,6 +1,7 @@
 """The keyframe build: non-max suppression, corner lists, the Shi-Tomasi
-score (the plain version of kernel K3) and ``build_frame``, the PyTorch
-port against the JAX package on the same seeded inputs.
+score (the plain version of kernel K3, on one image and over a pyramid
+atlas) and ``build_frame``, the PyTorch port against the JAX package on
+the same seeded inputs.
 
 Bars and why:
 - ``nonmax_3x3`` and ``corners_from_mask`` are exact, the order of the
@@ -17,7 +18,9 @@ Bars and why:
   at most).
   Against the JAX package's cumsum form ``shi_tomasi_score_map`` the bar
   is the JAX package's own between its two forms, rtol 2e-4 and atol 0.5
-  (tests/test_fast.py);
+  (tests/test_fast.py). Over an atlas, each level's view is held to the
+  JAX package's score of that level alone at the same bars, and the rest
+  of the atlas is 0;
 - ``build_frame``: atlas, corner mask, counts and non-max lists exact;
   candidate lists equal except for entries whose score lies within the
   cumsum bar of the threshold or of the capacity cut-off; SBIs within
@@ -35,9 +38,13 @@ from ptam_cg_tpu.ops import fast as fastops
 from ptam_cg_tpu.ops import image as imops
 from ptam_cg_tpu.ops import pallas_kernels
 from ptam_cg_tpu_torch.io import synth as tsynth
+from ptam_cg_tpu_torch.kernels import fast as kfast
+from ptam_cg_tpu_torch.kernels import shi_tomasi as kshi
 from ptam_cg_tpu_torch.models import keyframe as tkeyframe
 from ptam_cg_tpu_torch.ops import fast as tfast
 from ptam_cg_tpu_torch.ops import image as timops
+from ptam_cg_tpu_torch.ops import levels as tlevelops
+from test_torch_kernels import _bordered_atlas
 
 torch.set_num_threads(2)
 
@@ -109,20 +116,85 @@ def _trace(im):
     return box / 98.0
 
 
+def _assert_matches_jax_shi_tomasi(got, im, cumsum=True, cancel=False):
+    """``got`` against the banded TPU kernel (interpret mode) on ``im`` at
+    1e-5 of the score plus 3e-5 of the trace, and against the cumsum form
+    at the JAX package's own bar. With ``cancel`` the first bar also takes
+    the float32 rounding of the discriminant tr^2 - 4 det, a few ulps of
+    tr^2 (8 eps tr^2 = e), which moves the root by e / (2 root), at most
+    sqrt(e): where the eigenvalues nearly tie, as on uniform noise, the
+    root is small and that term dominates."""
+    banded = np.asarray(pallas_kernels.shi_tomasi_banded(
+        jnp.asarray(im), half_box=3, interpret=True))
+    tr = _trace(im)
+    bar = 1e-5 * np.abs(banded) + 3e-5 * tr
+    if cancel:
+        e = 8 * np.finfo(np.float32).eps * tr.astype(np.float64) ** 2
+        root = np.maximum(tr - 2.0 * banded, 0.0)
+        bar = bar + 0.5 * np.minimum(np.sqrt(e), e / np.maximum(2 * root,
+                                                                1e-30))
+    excess = np.abs(got - banded) - bar
+    assert excess.max() <= 0, (im.shape, excess.max())
+    if cumsum:
+        ref = np.asarray(jax.jit(imops.shi_tomasi_score_map)(jnp.asarray(im)))
+        np.testing.assert_allclose(got, ref, rtol=ST_RTOL, atol=ST_ATOL)
+
+
 def test_shi_tomasi_plain_matches_jax(frame):
     """The four pyramid levels of a 320x240 frame and a noise image of an
     odd shape."""
     for im in _shi_inputs(frame):
         got = timops.shi_tomasi_score_map(torch.from_numpy(im)).numpy()
-        banded = np.asarray(pallas_kernels.shi_tomasi_banded(
-            jnp.asarray(im), half_box=3, interpret=True))
-        excess = np.abs(got - banded) - (1e-5 * np.abs(banded)
-                                         + 3e-5 * _trace(im))
-        assert excess.max() <= 0, (im.shape, excess.max())
-        cumsum = np.asarray(jax.jit(imops.shi_tomasi_score_map)(
-            jnp.asarray(im)))
-        np.testing.assert_allclose(got, cumsum, rtol=ST_RTOL, atol=ST_ATOL)
+        _assert_matches_jax_shi_tomasi(got, im)
         assert (got > CAND_MIN).sum() > 10
+
+
+def _levels_and_rest(atlas, score):
+    """Each level's view of ``score`` and of ``atlas``, and the mask of
+    the atlas outside the levels' inner pixels."""
+    outside = np.ones(atlas.shape, bool)
+    views = []
+    for r0, c0, hl, wl in kfast.level_rects(atlas.shape):
+        views.append((score[r0: r0 + hl, c0: c0 + wl],
+                      atlas[r0: r0 + hl, c0: c0 + wl]))
+        outside[r0 + 4: r0 + hl - 4, c0 + 4: c0 + wl - 4] = False
+    return views, outside
+
+
+def test_shi_tomasi_atlas_plain_matches_jax(frame):
+    """A 320x240 frame's pyramid atlas: each level's view is the JAX
+    package's score of that level, and the rest of the atlas is 0."""
+    atlas = tlevelops.pack_atlas(timops.build_pyramid(
+        torch.from_numpy(frame), 4))
+    score = kshi.shi_tomasi_atlas(atlas)             # a CPU tensor: plain
+    assert score.shape == atlas.shape and score.dtype == torch.float32
+    views, outside = _levels_and_rest(atlas.numpy(), score.numpy())
+    for got, im in views:
+        _assert_matches_jax_shi_tomasi(got, im)
+        np.testing.assert_array_equal(
+            got, kshi.shi_tomasi_score_map_plain(torch.from_numpy(im)))
+    assert not score.numpy()[outside].any()
+    assert (score > CAND_MIN).sum() > 100
+
+
+def test_shi_tomasi_atlas_plain_reads_no_neighbouring_level():
+    """Levels with bright borders side by side, and bright dots in the
+    unused area: each level's view is the JAX package's score of that
+    level alone (zero padding at its edges) and the rest is 0, where the
+    score of the atlas as one image (which reads across level edges) is
+    not. A score at least 4 px inside a level reads that level alone, so
+    there the two agree."""
+    atlas = _bordered_atlas((320, 240), 4)
+    score = kshi.shi_tomasi_atlas_plain(torch.from_numpy(atlas)).numpy()
+    views, outside = _levels_and_rest(atlas, score)
+    for got, im in views:
+        np.testing.assert_array_equal(
+            got, kshi.shi_tomasi_score_map_plain(torch.from_numpy(im)))
+        _assert_matches_jax_shi_tomasi(got, im, cancel=True)
+    assert not score[outside].any()
+    whole = kshi.shi_tomasi_score_map_plain(torch.from_numpy(atlas)).numpy()
+    assert (whole[outside] > CAND_MIN).any()
+    np.testing.assert_array_equal(whole[~outside], score[~outside])
 
 
 def _near(s, level):
