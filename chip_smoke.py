@@ -1,5 +1,5 @@
-"""Run the PyTorch port's tracking step and keyframe integration on one
-NVIDIA GPU.
+"""Run the PyTorch port's tracking step, keyframe integration and bundle
+adjustment on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -48,7 +48,34 @@ Phases, each fatal on failure:
 7. the integration of phase 6 on the card and on the CPU from the same
    map, features and measurements: the same re-found set and new points
    per level up to differences traced to float noise (at most 1%), new
-   points within 1e-3 and measurements within 1e-3 px.
+   points within 1e-3 and measurements within 1e-3 px;
+8. bundle adjustment (no hand-written kernel): ``bench_ba.py``'s problem
+   (``synth.ba_problem``, points perturbed) at the local (5 cameras, 512
+   points, 2048 measurements) and global (64, 4096, 16384) tiers, TF32
+   off. As bench_ba has it (one fixed camera): ``compute`` twice on the
+   card, bit-identical. With a second camera fixed to pin the scale
+   (``ba_tier``): one LM step from the start, card against the CPU port,
+   the same flags and pruned set; ``compute`` on the card twice,
+   bit-identical; against the CPU port (and the CPU port on one thread,
+   for the spread summation order alone makes) the same failed flag and
+   pruned set, the RMS within a relative BA_ERR_RTOL. Step and run: poses
+   and points within the BA_* bars. The RMS falls. Timed: ``lm_step`` and
+   ``compute`` by CUDA events and the host clock, device us and kernels a
+   step (profiler), host reads a step and a run (sync debug mode: one a
+   lambda try, and one a problem), peak memory, and the dominant Schur
+   product against its bound;
+9. the MapMaker's BA (deterministic mode): global BA, then local BA of
+   the newest keyframe, on ``synth.ba_map``'s 64 keyframes in 128 slots
+   and 4096 point slots, twice on the card (bit-identical), once in the
+   card's default mode (latency mode: the same map) and on the CPU (the
+   same point-valid, measurement, retry and never-retry masks, poses and
+   valid points within phase 8's bars); then global BA and
+   ``handle_bad_points`` on a copy of phase 6's integrated map (keyframe
+   0 fixed, as stereo init fixes it; ``_n_points_hint`` set to the live
+   count, as the engine sets it), the same card-vs-CPU bars, frames
+   41..60 tracked GOOD at phase 4's bars against the adjusted map, and
+   the number of phase 6's wrong epipolar points (|z| > 0.05) that BA
+   pruned, printed.
 The line before the last is a JSON summary of the kernels (numbers summed
 over a tracked frame's calls, K3's over a keyframe's); the last line is
 the JSON result. Times are medians of CUDA-event timings.
@@ -85,6 +112,22 @@ F32_OPS_S = 67e12
 # K3's float32 operations a pixel: 2 gradients, 3 products, 3 x (6 + 6)
 # box-sum adds, 3 divides, 11 for the smaller eigenvalue.
 SHI_OPS = 55
+# Phase 8: BA tiers (cameras, points, measurements), bench_ba.py's.
+BA_TIERS = {"local": (5, 512, 2048), "global": (64, 4096, 16384)}
+BA_REPS = 5
+# Phase 9: synth.ba_map's keyframes, slots and points.
+BA_MAP = dict(n_kfs=64, max_kfs=128, n_pts=4096, seed=0)
+# Card against CPU (see ba_tier): poses, and points by their 99th
+# percentile and their largest difference; the RMS error, relative. Each
+# is 2-3x the larger of two spreads measured on one H100 at 700 W: card
+# against CPU, and the CPU port on 1 against 8 threads (PERF.md §6):
+# poses 3.8e-5 (one step), points 2.2e-3 (99th percentile) and 5.3e-3
+# (largest), RMS 4.9e-5.
+BA_POSE_TOL = 1e-4
+BA_PT_P99_TOL = 5e-3
+BA_PT_MAX_TOL = 1e-2
+BA_ERR_RTOL = 1.5e-4
+WRONG_Z = 0.05       # a new point further off the z=0 plane is wrong
 
 
 def fail(msg):
@@ -218,6 +261,313 @@ def covered(shape, oy, ox, D):
     for dy, dx, sign in ((0, 0, 1), (D, 0, -1), (0, D, -1), (D, D, 1)):
         edges.index_put_((oy + dy, ox + dx), sign * ones, accumulate=True)
     return int((edges.cumsum(0).cumsum(1)[:H, :W] > 0).sum())
+
+
+def sync_count(fn, torch):
+    """Host syncs PyTorch's sync debug mode reports during ``fn()``."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def ba_diffs(torch, R, t, pts, R_c, t_c, pts_c):
+    """(|d pose|, 99th percentile and max of |d point|), card against
+    CPU."""
+    d_pose = max(max_abs_diff(R.cpu(), R_c), max_abs_diff(t.cpu(), t_c))
+    d_pt = (pts.cpu() - pts_c).abs().max(dim=1).values
+    return d_pose, float(torch.quantile(d_pt, 0.99)), float(d_pt.max())
+
+
+def ba_within(d):
+    d_pose, p99, d_max = d
+    return (d_pose <= BA_POSE_TOL and p99 <= BA_PT_P99_TOL
+            and d_max <= BA_PT_MAX_TOL)
+
+
+def fmt_d(d):
+    return (f"|d pose| {d[0]:.2e}, |d point| 99th percentile {d[1]:.2e}, "
+            f"max {d[2]:.2e}")
+
+
+def ba_repeats(torch, tier, prob, cam):
+    """bench_ba's own problem (one fixed camera): two card runs must be
+    bit-identical and lower the RMS."""
+    from ptam_cg_tpu_torch.models import bundle
+    runs = [bundle.compute(prob, cam, return_flags=True) for _ in range(2)]
+    (a, _, fa), (b, _, fb) = runs
+    same = fa == fb and all(torch.equal(getattr(a.problem, f),
+                                        getattr(b.problem, f))
+                            for f in ("cam_R", "cam_t", "pt_pos", "meas_bad"))
+    rms0 = float(bundle.residual_rms(prob, cam))
+    rms1 = float(bundle.residual_rms(a.problem, cam))
+    print(f"[8] BA {tier}, bench_ba's problem (camera 0 fixed): runs "
+          f"(converged, iterations, failed, accepted) {fa}; RMS "
+          f"{rms0:.4f} -> {rms1:.4f} px; two card runs bit-identical: {same}")
+    check(same and torch.equal(a.last_error, b.last_error),
+          f"BA {tier}, one fixed camera: two card runs differ")
+    check(not fa[2] and rms1 < rms0, f"BA {tier}, one fixed camera: failed "
+          f"{fa[2]}, RMS {rms0} -> {rms1}")
+
+
+def ba_tier(torch, dev, card, tier, C, P, M):
+    """Phase 8 at one tier: card runs, card vs CPU, times and counts.
+
+    bench_ba's problem runs first, as it is (``ba_repeats``). For the
+    comparisons the problem fixes a second camera, C // 2, far from the
+    first: bench_ba's single fixed camera leaves the monocular scale free,
+    and card and CPU then drift apart along it. One LM step from the start is
+    held to the same flags and pruned set. A whole run (10-20 steps)
+    decides some steps on float noise (an accept whose error change is
+    noise; a lambda retry after the float32 Schur complement goes
+    indefinite near lambda's 1e-10 floor), so its iteration and accept
+    counts may differ; it is held to its outcome: the same failed flag
+    and pruned set, the RMS within a relative BA_ERR_RTOL. Poses and
+    points must agree within BA_POSE_TOL and BA_PT_*_TOL, in the step and
+    in the run; a point seen in one or two near-parallel views moves
+    most. The CPU port on one thread, against its default threads, shows
+    the spread summation order alone makes."""
+    from ptam_cg_tpu_torch.config import BundleConfig
+    from ptam_cg_tpu_torch.io import synth
+    from ptam_cg_tpu_torch.models import bundle
+    from ptam_cg_tpu_torch.utils import mest
+    from ptam_cg_tpu_torch.utils.tree import to_device
+    ba_repeats(torch, tier, *synth.ba_problem(C, P, M, seed=0, device=dev))
+    prob, cam = synth.ba_problem(C, P, M, seed=0, fixed=(0, C // 2),
+                                 device=dev)
+    c_prob, c_cam = to_device(prob, "cpu"), to_device(cam, "cpu")
+    rms0 = float(bundle.residual_rms(prob, cam))
+
+    # One step, card against CPU.
+    s0 = bundle.init_lm(prob)
+    g1, c1 = bundle.lm_step(s0, cam), bundle.lm_step(bundle.init_lm(c_prob),
+                                                     c_cam)
+    f1 = bundle.flags(g1)
+
+    def diffs(x, y):
+        x, y = x.problem, y.problem
+        return ba_diffs(torch, x.cam_R, x.cam_t, x.pt_pos, y.cam_R, y.cam_t,
+                        y.pt_pos)
+
+    d1 = diffs(g1, c1)
+    print(f"[8] BA {tier}: one step, card vs CPU: flags {f1} / "
+          f"{bundle.flags(c1)}, {fmt_d(d1)}")
+    check(f1 == bundle.flags(c1) and torch.equal(g1.problem.meas_bad.cpu(),
+                                                 c1.problem.meas_bad),
+          f"BA {tier}: one step's flags or pruned set differ")
+    check(ba_within(d1), f"BA {tier}: one step's poses or points differ")
+
+    # Whole runs: twice on the card, on the CPU, and on one CPU thread.
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        state, n, flags = bundle.compute(prob, cam, return_flags=True)
+        torch.cuda.synchronize()
+        runs.append((state, flags, time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated() - base
+    (a, fa, sa), (b, fb, sb) = runs
+    same = fa == fb and all(torch.equal(getattr(a.problem, f),
+                                        getattr(b.problem, f))
+                            for f in ("cam_R", "cam_t", "pt_pos", "meas_bad"))
+    check(same and torch.equal(a.last_error, b.last_error),
+          f"BA {tier}: two card runs differ")
+    conv, iters, failed, accepted = fa
+    rms1 = float(bundle.residual_rms(a.problem, cam))
+    check(not failed and rms1 < rms0, f"BA {tier}: failed {failed}, RMS "
+          f"{rms0} -> {rms1}")
+    cpu = []
+    n_threads = torch.get_num_threads()
+    for threads in (n_threads, 1):
+        torch.set_num_threads(threads)
+        t0 = time.perf_counter()
+        c_state, _, c_flags = bundle.compute(c_prob, c_cam, return_flags=True)
+        cpu.append((c_state, c_flags, time.perf_counter() - t0,
+                    float(bundle.residual_rms(c_state.problem, c_cam))))
+    torch.set_num_threads(n_threads)
+    (c, fc, cpu_s, rms_c), (c1t, fc1, _, rms_c1) = cpu
+    d = diffs(a, c)
+    d_cpu = diffs(c1t, c)
+    d_rms = abs(rms1 - rms_c) / rms_c
+    print(f"[8] BA {tier} C={C} P={P} M={M}, cameras 0 and {C // 2} fixed: "
+          f"RMS {rms0:.4f} -> {rms1:.4f} px; two card runs bit-identical. "
+          f"Runs (converged, iterations, failed, accepted): card {fa}, CPU "
+          f"{fc} ({n_threads} threads), CPU {fc1} (1 thread); "
+          f"{int(a.problem.meas_bad.sum())} pruned; card vs CPU {fmt_d(d)}, "
+          f"RMS rel. {d_rms:.2e}; CPU 1 vs {n_threads} threads "
+          f"{fmt_d(d_cpu)}, RMS rel. {abs(rms_c1 - rms_c) / rms_c:.2e}; CPU "
+          f"compute {cpu_s:.2f} s")
+    check(not fc[2] and torch.equal(a.problem.meas_bad.cpu(),
+                                    c.problem.meas_bad),
+          f"BA {tier}: card and CPU runs pruned differently or failed")
+    check(ba_within(d) and d_rms <= BA_ERR_RTOL,
+          f"BA {tier}: card and CPU runs differ")
+
+    # Times and counts of one LM step from the start state, and of a run.
+    tries = f1[1]
+    step_ms = time_ms(lambda _: bundle.lm_step(s0, cam), torch,
+                      reps=BA_REPS)
+    host = []
+    for _ in range(BA_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bundle.lm_step(s0, cam)
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+    dev_us_step, n_kernels = device_us(lambda _: bundle.lm_step(s0, cam),
+                                       torch, n=3)
+    reads = sync_count(lambda: bundle.lm_chunk(
+        s0, cam, BundleConfig(), mest.TUKEY, 1, bundle.INIT_FLAGS), torch)
+    run_reads = sync_count(lambda: bundle.compute(prob, cam), torch)
+    check(reads == tries and run_reads == iters + 1,
+          f"BA {tier}: host reads {reads} in a step of {tries} lambda tries, "
+          f"{run_reads} in a run of {iters} iterations")
+    run_ms = time_ms(lambda _: bundle.compute(prob, cam), torch, reps=3)
+    # The dominant product, S_off = (W V^-1)(W)^T: (6C x 3P)(3P x 6C).
+    flops = 2.0 * (6 * C) ** 2 * 3 * P
+    bound_us = flops / F32_OPS_S * 1e6
+    wv = torch.rand(6 * C, 3 * P, device=dev)
+    w = torch.rand(6 * C, 3 * P, device=dev)
+    mm_ms = time_ms(lambda _: wv @ w.T, torch)
+    print(f"[8] BA {tier}: lm_step from the start ({tries} lambda "
+          f"tries): {step_ms:.3f} ms (CUDA events), host "
+          f"{statistics.median(host) * 1e3:.3f} ms; device "
+          f"{fmt_us(dev_us_step)} in {n_kernels:.0f} kernels; host reads "
+          f"(sync debug mode) in a one-step chunk {reads}, in a run "
+          f"{run_reads} (one a lambda try, one for the layout); compute {run_ms:.3f} ms (CUDA events), host "
+          f"{sa * 1e3:.3f} / {sb * 1e3:.3f} ms ({iters} iterations); peak "
+          f"memory {peak / 2 ** 20:.1f} MiB above the problem; Schur "
+          f"product {2 * (6 * C) ** 2 * 3 * P / 1e9:.3f} GFLOP a lambda "
+          f"try: bound {bound_us:.2f} us (f32 peak), matmul alone "
+          f"{mm_ms * 1e3:.2f} us (CUDA events)  [{card}]")
+
+
+def ba_compare_makers(torch, gpu, cpu, what):
+    """Card MapMaker against CPU MapMaker after the same BA: the masks
+    that differ (none allowed) and the pose and point differences."""
+    masks = [f for f in ("point_valid", "meas_valid", "never_retry")
+             if not torch.equal(getattr(gpu.map, f).cpu(), getattr(cpu.map, f))]
+    if not torch.equal(gpu.failure_mask.cpu(), cpu.failure_mask):
+        masks.append("retry")
+    g, c = gpu.map, cpu.map
+    live = c.point_valid
+    d = ba_diffs(torch, g.kf_R, g.kf_t, g.point_pos[live.to(g.point_pos.device)],
+                 c.kf_R, c.kf_t, c.point_pos[live])
+    return masks, d
+
+
+def check_makers(masks, d, what):
+    check(not masks, f"{what}: card and CPU differ in {masks}")
+    check(ba_within(d), f"{what}: card and CPU poses or points differ")
+
+
+def _global_rms(torch, mp, cam):
+    from ptam_cg_tpu_torch.models import bundle, mapmaker
+    prob, *_ = mapmaker.extract_bundle(mp, mp.kf_valid & ~mp.kf_fixed,
+                                       mp.kf_valid & mp.kf_fixed,
+                                       mp.point_valid,
+                                       int(mp.meas_valid.sum()))
+    return float(bundle.residual_rms(prob, cam))
+
+
+def run_ba(torch, mp, cam, calls, deterministic=True):
+    """A MapMaker on ``mp`` (deterministic unless asked otherwise; the
+    live point count as its hint) after ``calls`` (each takes the maker);
+    returns (maker, host seconds of each call)."""
+    from ptam_cg_tpu_torch.models import mapmaker
+    maker = mapmaker.MapMaker(mp, cam, SIZE, deterministic=deterministic)
+    maker._n_points_hint = int(mp.point_valid.sum())
+    seconds = []
+    for call in calls:
+        t0 = time.perf_counter()
+        call(maker)
+        if mp.point_pos.is_cuda:
+            torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        check(not maker.reset_requested, "BA requested a map reset")
+    return maker, seconds
+
+
+def ba_mapmaker_64(torch, dev, card):
+    """Phase 9 on synth.ba_map: global then local BA."""
+    from ptam_cg_tpu_torch.io import synth
+    from ptam_cg_tpu_torch.utils.tree import to_device
+    m64, cam = synth.ba_map(**BA_MAP, image_size=SIZE, device=dev)
+    newest = BA_MAP["n_kfs"] - 1
+    calls = [lambda mk: mk.bundle_adjust_all(),
+             lambda mk: mk.bundle_adjust_recent(newest)]
+    rms0 = _global_rms(torch, m64, cam)
+    a, secs = run_ba(torch, m64, cam, calls)
+    b, _ = run_ba(torch, m64, cam, calls)
+    # The card's default: latency mode, chunks sized by the step time.
+    lat, lat_secs = run_ba(torch, m64, cam, calls, deterministic=None)
+    check(not lat.deterministic and lat._ba_step_ms is not None,
+          "phase 9: the card's default MapMaker did not run latency mode")
+    for other, what in ((b, "two card runs"),
+                        (lat, "deterministic and latency mode")):
+        for f in ("kf_R", "kf_t", "point_pos", "point_valid", "meas_valid",
+                  "never_retry"):
+            check(torch.equal(getattr(a.map, f), getattr(other.map, f)),
+                  f"phase 9: {what} differ in {f}")
+        check(torch.equal(a.failure_mask, other.failure_mask),
+              f"phase 9: {what} differ in the retry mask")
+    rms1 = _global_rms(torch, a.map, cam)
+    t0 = time.perf_counter()
+    c, _ = run_ba(torch, to_device(m64, "cpu"), to_device(cam, "cpu"), calls)
+    cpu_s = time.perf_counter() - t0
+    masks, d = ba_compare_makers(torch, a, c, "phase 9 (64 keyframes)")
+    print(f"[9] 64-keyframe map: {int(m64.point_valid.sum())} points, "
+          f"{int(m64.meas_valid.sum())} measurements; global BA "
+          f"{secs[0] * 1e3:.1f} ms, local BA of keyframe {newest} "
+          f"{secs[1] * 1e3:.1f} ms (host clock); {a._last_n_sel} "
+          f"measurements in the last extract; converged full "
+          f"{a.converged_full}, recent {a.converged_recent}; RMS "
+          f"{rms0:.4f} -> {rms1:.4f} px; points valid "
+          f"{int(a.map.point_valid.sum())}, retry "
+          f"{int(a.failure_mask.sum())}, never-retry "
+          f"{int(a.map.never_retry.sum())}; two card runs bit-identical, "
+          f"and latency mode (global {lat_secs[0] * 1e3:.1f} ms, local "
+          f"{lat_secs[1] * 1e3:.1f} ms, step EMA {lat._ba_step_ms:.2f} ms); "
+          f"card vs CPU: masks differing {masks}, {fmt_d(d)}; CPU "
+          f"{cpu_s:.2f} s  [{card}]")
+    check_makers(masks, d, "phase 9 (64 keyframes)")
+    check(rms1 < rms0, "phase 9: BA did not lower the error")
+
+
+def ba_mapmaker_phase6(torch, card, mk2, new_mask, cam, cpu_cam):
+    """Phase 9 on a copy of phase 6's integrated map: global BA and GC.
+    Returns the card's adjusted map."""
+    from ptam_cg_tpu_torch.models import map_state as ms
+    from ptam_cg_tpu_torch.utils.tree import to_device
+    m6 = ms.copy_map(mk2)
+    m6.kf_fixed[0] = True
+    wrong = new_mask & (m6.point_pos[:, 2].abs() > WRONG_Z)
+
+    def calls(mk):
+        mk.bundle_adjust_all()
+        mk.handle_bad_points()
+
+    rms0 = _global_rms(torch, m6, cam)
+    a, secs = run_ba(torch, m6, cam, [calls])
+    c, _ = run_ba(torch, to_device(m6, "cpu"), cpu_cam, [calls])
+    masks, d = ba_compare_makers(torch, a, c, "phase 9 (phase-6 map)")
+    rms1 = _global_rms(torch, a.map, cam)
+    pruned = int((wrong & ~a.map.point_valid).sum())
+    print(f"[9] phase 6's map: {int(m6.point_valid.sum())} points, "
+          f"{int(m6.meas_valid.sum())} measurements; global BA + GC "
+          f"{secs[0] * 1e3:.1f} ms (host clock); RMS {rms0:.4f} -> "
+          f"{rms1:.4f} px; points valid {int(a.map.point_valid.sum())}, "
+          f"retry {int(a.failure_mask.sum())}, never-retry "
+          f"{int(a.map.never_retry.sum())}; card vs CPU: masks differing "
+          f"{masks}, {fmt_d(d)}; wrong epipolar points (|z| > {WRONG_Z}): "
+          f"{int(wrong.sum())}, pruned by BA {pruned}  [{card}]")
+    check_makers(masks, d, "phase 9 (phase-6 map)")
+    return a.map
 
 
 def main():
@@ -736,7 +1086,7 @@ def main():
         out = step(state, mk, frames[i - 1], prev)
         state, prev = out.state, out.sbi_track
         bad += [b for b in [off_bars(state, i)] if b]
-    res_kf, state_kf = out.result, state
+    res_kf, state_kf, prev_kf = out.result, state, prev
     check(not bad, f"frames 1..{N_TRACK_KF} off the bars: {bad}")
     need = bool(mapmaker.need_new_kf(mk, state_kf.pose, state_kf.depth_mean,
                                      1.0, mm_cfg.max_kf_dist_wiggle_mult))
@@ -848,6 +1198,34 @@ def main():
     check(all(d["reason"] for d in diffs),
           "unexplained integration difference")
     check(len(diffs) <= 0.01 * n_cmp, "too many integration differences")
+
+    # ---- 8. bundle adjustment ----
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 is on")
+    reset_launch_counts()
+    for tier, shape in BA_TIERS.items():
+        ba_tier(torch, dev, card, tier, *shape)
+
+    # ---- 9. the MapMaker's BA ----
+    ba_mapmaker_64(torch, dev, card)
+    gpu_m6 = ba_mapmaker_phase6(torch, card, mk2, new_mask, seq.cam, cpu_cam)
+    launches = launch_counts()
+    print(f"[9] launches of K1-K3 in phases 8-9's BA: {launches} (BA has "
+          f"no hand-written kernel)")
+    check(not any(launches.values()), "BA launched a kernel of K1-K3")
+    bad, state, prev = [], state_kf, prev_kf
+    reset_launch_counts()
+    for i in range(N_TRACK_KF + 1, N_FRAMES + 1):
+        out = step(state, gpu_m6, frames[i - 1], prev)
+        state, prev = out.state, out.sbi_track
+        bad += [b for b in [off_bars(state, i)] if b]
+    launches = launch_counts()
+    expected = {name: k["launches_per_frame"] * (N_FRAMES - N_TRACK_KF)
+                for name, k in kernels.items()}
+    print(f"[9] frames {N_TRACK_KF + 1}..{N_FRAMES} against the adjusted "
+          f"map: off the bars {bad}; launches {launches}, expected "
+          f"{expected}")
+    check(not bad, "frames off the bars after BA")
+    check(launches == expected, "phase-9 tracking launch counts differ")
 
     check(not any(k == "jax" or k.startswith("jax.") for k in sys.modules),
           "jax was imported")

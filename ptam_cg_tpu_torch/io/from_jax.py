@@ -15,6 +15,8 @@ import numpy as np
 import torch
 
 from ptam_cg_tpu_torch.camera.atan import Camera
+from ptam_cg_tpu_torch.config import BundleConfig
+from ptam_cg_tpu_torch.models import bundle
 from ptam_cg_tpu_torch.models.keyframe import FrameFeatures, TrackFeatures
 from ptam_cg_tpu_torch.models.map_state import MapState
 from ptam_cg_tpu_torch.models.tracker import TrackerState
@@ -89,3 +91,19 @@ def tracker_state_from_numpy(d: dict, device="cuda",
         depth_mean=tensor(d["depth_mean"], device),
         depth_sigma=tensor(d["depth_sigma"], device),
         generator=gen)
+
+
+def bundle_problem_from_numpy(d: dict, device="cuda") -> bundle.BundleProblem:
+    """From a JAX BundleProblem."""
+    return bundle.BundleProblem(**_fields(bundle.BundleProblem, d, device))
+
+
+def lm_state_from_numpy(d: dict, device="cuda",
+                        cfg: BundleConfig = BundleConfig()) -> bundle.LMState:
+    """From a JAX LMState; the port's measurement layout is built from its
+    problem (one host read)."""
+    state = bundle.init_lm(bundle_problem_from_numpy(d["problem"], device),
+                           cfg)
+    return dataclasses.replace(state, **{
+        f.name: tensor(d[f.name], device) for f in dataclasses.fields(state)
+        if f.name not in ("problem", "layout")})

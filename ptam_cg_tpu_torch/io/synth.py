@@ -2,7 +2,9 @@
 part of ``ptam_cg_tpu.io.synth``), plus two one-keyframe maps of the
 scene: ``planar_map_scene`` (FAST corners, the tracking map ``bench.py``
 builds) and ``candidate_map_scene`` (Shi-Tomasi candidates with dense root
-measurements, the mapping scene of ``bench_mapping.py``).
+measurements, the mapping scene of ``bench_mapping.py``); and the bundle
+adjustment scenes: ``ba_problem`` (``bench_ba.py``'s problem) and
+``ba_map`` (a many-keyframe map of the same geometry).
 
 The texture is drawn from a numpy ``Generator``: it has the structure of
 the JAX package's texture but not its values (jax.random draws differ),
@@ -21,6 +23,7 @@ import torch.nn.functional as F
 
 from ptam_cg_tpu_torch.config import LEVELS, FrontendConfig
 from ptam_cg_tpu_torch.camera import atan
+from ptam_cg_tpu_torch.models import bundle
 from ptam_cg_tpu_torch.models import keyframe as kflib
 from ptam_cg_tpu_torch.models import map_state as ms
 from ptam_cg_tpu_torch.ops import levels as levelops
@@ -253,3 +256,152 @@ def candidate_map_scene(seq: SyntheticSequence, max_points: int = 2048,
         torch.full((P,), ms.SRC_ROOT, dtype=torch.int32, device=dev),
         m.point_valid)
     return m, ff0
+
+
+# ---------------------------------------------------------------------------
+# Bundle adjustment scenes
+# ---------------------------------------------------------------------------
+
+#: The reference ATAN camera, at 640x480, of the BA scenes.
+BA_CAMERA = ((1.0803, 1.43987, 0.519983, 0.548655, 0.244943), (640, 480))
+#: bench_ba.make_problem's scene: a camera's sideways step and pan a
+#: camera index, the points' depth range, and the pixel noise (at level 0).
+BA_MOTION = (0.08, 0.015)
+BA_DEPTH = (3.0, 6.0)
+BA_NOISE_PX = 0.3
+#: ba_map: the most keyframes that measure a point.
+BA_MEAS_PER_PT = 4
+
+
+def _ba_geometry(rng: np.random.Generator, n_cams: int, n_pts: int):
+    """``bench_ba.make_problem``'s scene: points uniform in a box in front
+    of the cameras, and cameras stepping sideways while panning. Returns
+    numpy (points (n_pts, 3), R (n_cams, 3, 3), t (n_cams, 3))."""
+    z0, z1 = BA_DEPTH
+    pts = rng.uniform([-2, -1.5, z0], [2, 1.5, z1],
+                      (n_pts, 3)).astype(np.float32)
+    tm, rm = BA_MOTION
+    j = np.arange(n_cams, dtype=np.float32)
+    zero = np.zeros_like(j)
+    xi = np.stack([tm * j, tm * 0.125 * j, zero, zero, -rm * j, zero], -1)
+    poses = se3lib.se3_exp(torch.from_numpy(xi.astype(np.float32)))
+    return pts, poses.R.numpy(), poses.t.numpy()
+
+
+def _project_np(cam: atan.Camera, p_cam: np.ndarray) -> np.ndarray:
+    z1 = p_cam[..., :2] / p_cam[..., 2:3]
+    return atan.project(torch.from_numpy(np.ascontiguousarray(z1)),
+                        cam).numpy()
+
+
+def ba_problem(n_cams: int, n_pts: int, n_meas: int, seed: int = 0,
+               fixed=(0,), device="cuda"):
+    """``bench_ba.make_problem`` rebuilt with numpy and the port: the same
+    draws from ``np.random.default_rng(seed)`` in the same order, so the
+    same problem up to float32 rounding of the poses. Measurements pair
+    random cameras and points (a pair may repeat); the cameras ``fixed``
+    are held (bench_ba's: the first, which leaves the monocular scale
+    free; a second fixed camera far from it pins the scale); the points
+    start perturbed by N(0, 0.02). Returns (problem, camera) on
+    ``device``."""
+    rng = np.random.default_rng(seed)
+    cam_cpu = atan.make_camera(*BA_CAMERA, device="cpu")
+    pts, R, t = _ba_geometry(rng, n_cams, n_pts)
+    mc = rng.integers(0, n_cams, n_meas).astype(np.int32)
+    mp = rng.integers(0, n_pts, n_meas).astype(np.int32)
+    p_cam = np.einsum("mij,mj->mi", R[mc], pts[mp]) + t[mc]
+    pix = _project_np(cam_cpu, p_cam)
+    pix += rng.normal(0, BA_NOISE_PX, pix.shape)
+    cam_fixed = np.zeros(n_cams, bool)
+    cam_fixed[list(fixed)] = True
+    pt0 = pts + rng.normal(0, 0.02, pts.shape).astype(np.float32)
+
+    def T(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    prob = bundle.BundleProblem(
+        cam_R=T(R), cam_t=T(t), cam_fixed=T(cam_fixed),
+        cam_valid=T(np.ones(n_cams, bool)), pt_pos=T(pt0),
+        pt_valid=T(np.ones(n_pts, bool)), meas_cam=T(mc), meas_pt=T(mp),
+        meas_pos=T(pix.astype(np.float32)),
+        meas_sqrt_inv_noise=T(np.ones(n_meas, np.float32)),
+        meas_valid=T(np.ones(n_meas, bool)),
+        meas_bad=T(np.zeros(n_meas, bool)))
+    return prob, atan.make_camera(*BA_CAMERA, device=device)
+
+
+def ba_map(n_kfs: int = 64, max_kfs: int = 128, n_pts: int = 4096,
+           seed: int = 0, image_size=(640, 480), device="cuda"):
+    """A map of ``ba_problem``'s geometry for the MapMaker's BA: ``n_kfs``
+    valid keyframes in ``max_kfs`` slots (keyframes 0 and ``n_kfs // 2``
+    fixed: their wide baseline pins the monocular scale; the others' poses
+    perturbed by twists of N(0, 0.003)), ``n_pts`` points in as many
+    slots, perturbed by N(0, 0.02). Each point is measured in up to
+    ``BA_MEAS_PER_PT`` keyframes drawn from those that see it (in front,
+    8 px inside the image); a point seen by fewer than two is invalid.
+    Each measurement has a level drawn from 0-3 and noise of
+    ``BA_NOISE_PX`` times its scale; the point's first measurement is its ROOT (source keyframe
+    and level), the others are tracker, re-find, trail or epipolar ones.
+    ``image_size`` sets only the keyframe atlases' shape (all zero); the
+    camera is 640x480. Returns (map, camera) on ``device``."""
+    rng = np.random.default_rng(seed)
+    cam_cpu = atan.make_camera(*BA_CAMERA, device="cpu")
+    W, H = BA_CAMERA[1]
+    pts, R, t = _ba_geometry(rng, n_kfs, n_pts)
+    p_cam = np.einsum("kij,pj->kpi", R, pts) + t[:, None]     # (K, P, 3)
+    pix = _project_np(cam_cpu, p_cam)
+    sees = ((p_cam[..., 2] > 0.1) & (pix[..., 0] >= 8) & (pix[..., 0] < W - 8)
+            & (pix[..., 1] >= 8) & (pix[..., 1] < H - 8))
+    prio = np.where(sees, rng.uniform(size=sees.shape), -1.0)
+    rank = np.argsort(np.argsort(-prio, axis=0, kind="stable"), axis=0,
+                      kind="stable")
+    meas = sees & (rank < BA_MEAS_PER_PT)
+    valid = meas.sum(0) >= 2
+    meas &= valid[None]
+    level = rng.integers(0, 4, meas.shape).astype(np.int32)
+    scale = (1 << level).astype(np.float32)
+    pos = (pix + rng.normal(0, BA_NOISE_PX, pix.shape) * scale[..., None]
+           ).astype(np.float32)
+    src_kf = np.argmax(meas, axis=0).astype(np.int32)           # first
+    root = np.zeros_like(meas)
+    root[src_kf, np.arange(n_pts)] = valid
+    others = np.array([ms.SRC_TRACKER, ms.SRC_REFIND, ms.SRC_TRAIL,
+                       ms.SRC_EPIPOLAR], np.int32)
+    source = np.where(root, ms.SRC_ROOT,
+                      others[rng.integers(0, 4, meas.shape)]).astype(np.int32)
+    src_level = level[src_kf, np.arange(n_pts)]
+    xi = rng.normal(0, 0.003, (n_kfs, 6)).astype(np.float32)
+    fixed = [0, n_kfs // 2]
+    xi[fixed] = 0.0
+    d = se3lib.se3_exp(torch.from_numpy(xi))
+    R0 = (d.R @ torch.from_numpy(R)).numpy()
+    t0 = ((d.R @ torch.from_numpy(t)[..., None])[..., 0] + d.t).numpy()
+    pt0 = pts + rng.normal(0, 0.02, pts.shape).astype(np.float32)
+
+    def T(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    m = ms.empty_map(image_size, max_points=n_pts, max_kfs=max_kfs,
+                     device=device)
+    K = n_kfs
+    m.kf_R[:K], m.kf_t[:K] = T(R0), T(t0)
+    m.kf_valid[:K] = True
+    m.kf_fixed[fixed] = True
+    m.point_pos[:] = T(pt0)
+    m.point_valid[:] = T(valid)
+    m.point_src_kf[:] = T(src_kf)
+    m.point_src_level[:] = T(src_level)
+    m.meas_valid[:K] = T(meas)
+    m.meas_pos[:K] = T(pos)
+    m.meas_level[:K] = T(level)
+    m.meas_subpix[:K] = T(meas)
+    m.meas_source[:K] = T(np.where(meas, source, 0))
+    root_pos = T(pos[src_kf, np.arange(n_pts)])
+    lv = m.point_src_level.long()
+    m.point_center[:] = levelops.level_n_pos(root_pos, lv)
+    cam = atan.make_camera(*BA_CAMERA, device=device)
+    c_nc, r_nc, d_nc, nrm = ms.make_point_rays(m.point_center, lv, cam)
+    m.point_center_nc, m.point_right_nc = c_nc, r_nc
+    m.point_down_nc, m.point_normal_nc = d_nc, nrm
+    m.good = torch.ones((), dtype=torch.bool, device=device)
+    return ms.refresh_pixel_vectors(m), cam

@@ -1,6 +1,7 @@
-"""Mapping jobs of keyframe integration (port of the job functions of
-``ptam_cg_tpu.models.mapmaker``; the ``MapMaker`` scheduler is not
-ported yet).
+"""The mapping engine's jobs (port of ``ptam_cg_tpu.models.mapmaker``):
+keyframe integration, bundle adjustment glue and bad-point GC, and the BA
+half of ``MapMaker``. The integrate queue and the ``step()`` scheduler are
+not ported yet.
 
 Keyframe integration inserts the new keyframe, writes the tracker's
 measurements, re-finds every map point in it (``refind_in_kf``), then
@@ -20,16 +21,29 @@ candidate the ZMSSD of the best match, its gap to the second best, the
 last squared subpixel step and (for candidates) the squared distance to
 the nearest measurement that thins them, so a parity check can tell a
 float-noise decision from a real difference (``utils/parity.py``).
+
+Bundle adjustment extracts a compact ``BundleProblem`` from the dense
+(keyframe, point) measurement matrix (``extract_bundle_compact``), runs LM
+on it (``models/bundle.py``) and writes the result back with the
+reference's outlier rules (``apply_bundle``). Every fixed-size selection
+(``jnp.nonzero(size=...)``, ``lax.top_k``) is a cumulative-sum compaction
+or a stable sort here, so no host read decides a shape and ties break as
+in JAX: lower index first.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import time
+import warnings
 
 import torch
 
 from ptam_cg_tpu_torch.camera import atan
+from ptam_cg_tpu_torch.config import (MAX_MEAS_PER_KF, BundleConfig,
+                                      MapMakerConfig)
+from ptam_cg_tpu_torch.models import bundle as bundlelib
 from ptam_cg_tpu_torch.models import map_state as ms
 from ptam_cg_tpu_torch.models.keyframe import FrameFeatures
 from ptam_cg_tpu_torch.models.map_state import MapState
@@ -37,6 +51,7 @@ from ptam_cg_tpu_torch.ops import levels as levelops
 from ptam_cg_tpu_torch.ops import patch as patchops
 from ptam_cg_tpu_torch.ops.gather import gather_windows
 from ptam_cg_tpu_torch.utils import geometry
+from ptam_cg_tpu_torch.utils import mest
 from ptam_cg_tpu_torch.utils import se3 as se3lib
 from ptam_cg_tpu_torch.utils.se3 import SE3
 
@@ -416,3 +431,452 @@ def integrate_keyframe_program(m: MapState, features: FrameFeatures,
             wiggle_scale, thin_radius, diag=sub(lev))
     return m, new_point_mask, torch.stack([slot, total.to(torch.int32)])
 
+
+
+# ---------------------------------------------------------------------------
+# Bundle adjustment: masks, extraction, write-back
+# ---------------------------------------------------------------------------
+
+def local_ba_masks(m: MapState, newest, n_neighbors: int = 4):
+    """Adjust, fixed and point masks of local BA (BundleAdjustRecent): the
+    newest keyframe and its ``n_neighbors`` nearest non-fixed keyframes are
+    adjusted; every other keyframe that measures one of their points is
+    held fixed. Ties in distance take the lower index, as ``lax.top_k``."""
+    K = m.kf_valid.shape[0]
+    dev = m.kf_valid.device
+    newest = torch.as_tensor(newest, device=dev).long()
+    is_newest = torch.arange(K, device=dev) == newest
+    d = torch.where(is_newest, float("inf"),
+                    ms.closest_kf_distances(m, _kf_pose(m, newest)))
+    idx = torch.sort(d, stable=True).indices[:min(n_neighbors, K)]
+    near = ms.scatter_drop(torch.zeros(K, dtype=torch.bool, device=dev), idx,
+                           torch.isfinite(d[idx]))
+    adjust = ((near & ~m.kf_fixed) | is_newest) & m.kf_valid
+    pts = torch.any(m.meas_valid & adjust[:, None], dim=0) & m.point_valid
+    observers = torch.any(m.meas_valid & pts[None, :], dim=1)
+    return adjust, observers & ~adjust & m.kf_valid, pts
+
+
+def _pow2ceil(n: int) -> int:
+    """Smallest power of two >= n (n >= 1)."""
+    return 1 << (max(int(n), 1) - 1).bit_length()
+
+
+def _first_true(mask: Tensor, size: int, fill: int) -> Tensor:
+    """``jnp.nonzero(mask, size=size, fill_value=fill)[0]`` of a 1-D mask:
+    the indices of its first ``size`` true entries in order, then
+    ``fill``; int64, no host read."""
+    rank = torch.cumsum(mask.to(torch.int64), 0) - 1
+    return ms.scatter_drop(
+        torch.full((size,), fill, dtype=torch.int64, device=mask.device),
+        torch.where(mask & (rank < size), rank, size),
+        torch.arange(mask.shape[0], device=mask.device))
+
+
+def _select_measurements(m: MapState, include: Tensor, max_meas: int,
+                         n: Tensor):
+    """``max_meas`` (k, p) measurement indices from the (K, P) ``include``
+    table: row-major when they all fit, else PRIORITIZED (ROOT provenance
+    first, then measurements of scarcely measured points, then newer
+    keyframes; ties to the lower flat index, as ``lax.top_k``). Both are
+    computed and one is selected on the device."""
+    K, P = include.shape
+    dev = include.device
+    flat = _first_true(include.reshape(-1), max_meas, 0)
+    if max_meas < K * P:
+        cnt = torch.sum(include.to(torch.float32), dim=0)           # (P,)
+        cnt = torch.clamp(cnt, min=1.0)
+        kk = torch.arange(K, dtype=torch.float32, device=dev)
+        # Tensor divisions, so the CPU and the card round alike.
+        score = (2.0 * (m.meas_source == ms.SRC_ROOT).to(torch.float32)
+                 + (torch.full_like(cnt, 4.0) / cnt)[None, :]
+                 + 0.5 * (kk / torch.full_like(kk, float(K)))[:, None]
+                 + 1.0)
+        score = torch.where(include, score, 0.0).reshape(-1)
+        top = torch.sort(score, descending=True, stable=True).indices
+        flat = torch.where(n <= max_meas, flat, top[:max_meas])
+    return (flat // P).to(torch.int32), (flat % P).to(torch.int32)
+
+
+def _meas_fields(m: MapState, k_idx: Tensor, p_idx: Tensor,
+                 mvalid: Tensor) -> dict:
+    """The measurement fields of a BundleProblem, read at the global
+    (k, p) indices, but its camera and point indices."""
+    kl, pl = k_idx.long(), p_idx.long()
+    return dict(meas_pos=m.meas_pos[kl, pl],
+                meas_sqrt_inv_noise=1.0 / levelops.level_scale(
+                    m.meas_level[kl, pl]),
+                meas_valid=mvalid, meas_bad=torch.zeros_like(mvalid))
+
+
+def _include(m: MapState, adjust_kf, fixed_kf, point_mask):
+    incl_kf = adjust_kf | fixed_kf
+    pt_ok = point_mask & m.point_valid
+    include = m.meas_valid & incl_kf[:, None] & pt_ok[None, :]
+    return incl_kf, pt_ok, include, torch.sum(include.to(torch.int32))
+
+
+def extract_bundle(m: MapState, adjust_kf: Tensor, fixed_kf: Tensor,
+                   point_mask: Tensor, max_meas: int):
+    """Dense measurement matrix -> masked full-capacity BundleProblem
+    (BundleAdjust's ID mapping). Returns (problem, meas_k (M,), meas_p (M,),
+    n_selected): the true measurement count before the ``max_meas`` cap;
+    past the cap the selection is prioritized (``_select_measurements``)."""
+    incl_kf, pt_ok, include, n = _include(m, adjust_kf, fixed_kf, point_mask)
+    k_idx, p_idx = _select_measurements(m, include, max_meas, n)
+    mvalid = torch.arange(max_meas, device=n.device) < n
+    prob = bundlelib.BundleProblem(
+        cam_R=m.kf_R, cam_t=m.kf_t, cam_fixed=fixed_kf | ~adjust_kf,
+        cam_valid=incl_kf, pt_pos=m.point_pos, pt_valid=pt_ok,
+        meas_cam=k_idx, meas_pt=p_idx,
+        **_meas_fields(m, k_idx, p_idx, mvalid))
+    return prob, k_idx, p_idx, n
+
+
+def extract_bundle_compact(m: MapState, adjust_kf: Tensor, fixed_kf: Tensor,
+                           point_mask: Tensor, max_cams: int, max_pts: int,
+                           max_meas: int):
+    """``extract_bundle`` with the included cameras and observed points
+    gathered into (max_cams, max_pts, max_meas)-shaped buffers, so an LM
+    step costs what the live map needs, not its capacity.
+
+    Returns ``(prob, meas_k, meas_p, cam_idx, pt_idx, counts)``: ``meas_k``
+    and ``meas_p`` are global (K, P) indices, ``cam_idx``/``pt_idx`` map a
+    compact slot to its global index (K / P in an unused slot), and
+    ``counts`` is the int32 (n_cams, n_pts, n_meas) of true pre-cap sizes.
+    """
+    K, P = m.meas_valid.shape
+    dev = m.meas_valid.device
+    incl_kf, pt_ok, include, n = _include(m, adjust_kf, fixed_kf, point_mask)
+    pt_used = torch.any(include, dim=0)
+    cam_idx = _first_true(incl_kf, max_cams, K)
+    pt_idx = _first_true(pt_used, max_pts, P)
+    # Global -> compact slot maps; an unincluded or overflowing entry keeps
+    # the out-of-range cap value, and its measurements are masked below.
+    cam_slot = ms.scatter_drop(
+        torch.full((K,), max_cams, dtype=torch.int64, device=dev), cam_idx,
+        torch.arange(max_cams, device=dev))
+    pt_slot = ms.scatter_drop(
+        torch.full((P,), max_pts, dtype=torch.int64, device=dev), pt_idx,
+        torch.arange(max_pts, device=dev))
+
+    k_idx, p_idx = _select_measurements(m, include, max_meas, n)
+    mc, mp = cam_slot[k_idx.long()], pt_slot[p_idx.long()]
+    mvalid = ((torch.arange(max_meas, device=dev) < n) & (mc < max_cams)
+              & (mp < max_pts))
+    cam_g = torch.clamp(cam_idx, max=K - 1)     # clamped gathers; the fill
+    pt_g = torch.clamp(pt_idx, max=P - 1)       # slots stay invalid
+    prob = bundlelib.BundleProblem(
+        cam_R=m.kf_R[cam_g], cam_t=m.kf_t[cam_g],
+        cam_fixed=(fixed_kf | ~adjust_kf)[cam_g] | (cam_idx >= K),
+        cam_valid=incl_kf[cam_g] & (cam_idx < K), pt_pos=m.point_pos[pt_g],
+        pt_valid=pt_used[pt_g] & (pt_idx < P), meas_cam=mc.to(torch.int32),
+        meas_pt=mp.to(torch.int32), **_meas_fields(m, k_idx, p_idx, mvalid))
+    counts = torch.stack([torch.sum(incl_kf.to(torch.int32)),
+                          torch.sum(pt_used.to(torch.int32)), n])
+    return (prob, k_idx, p_idx, cam_idx.to(torch.int32),
+            pt_idx.to(torch.int32), counts)
+
+
+def apply_bundle(m: MapState, prob: bundlelib.BundleProblem, meas_k: Tensor,
+                 meas_p: Tensor, adjust_kf: Tensor, point_mask: Tensor,
+                 cam_idx: Tensor | None = None, pt_idx: Tensor | None = None):
+    """Write BA results back and handle outliers by provenance: a ROOT
+    outlier, or an outlier of a point with at most 2 measurements (counted
+    before removal), trashes the point; a tracker or epipolar outlier is
+    retried through the failure queue; any other is never retried.
+    ``cam_idx``/``pt_idx`` are ``extract_bundle_compact``'s slot maps (None
+    for the dense extract). Returns (map, failure mask (K, P))."""
+    K, P = m.meas_valid.shape
+    pt_ok = point_mask & m.point_valid
+    if cam_idx is None:
+        cam_R, cam_t, pt_pos = prob.cam_R, prob.cam_t, prob.pt_pos
+    else:
+        # Compact results back to capacity space; fill slots drop.
+        cam_R = ms.scatter_drop(m.kf_R, cam_idx.long(), prob.cam_R)
+        cam_t = ms.scatter_drop(m.kf_t, cam_idx.long(), prob.cam_t)
+        pt_pos = ms.scatter_drop(m.point_pos, pt_idx.long(), prob.pt_pos)
+
+    out = prob.meas_bad & prob.meas_valid
+    flat = torch.where(out, meas_k.long() * P + meas_p.long(), K * P)
+    out2d = ms.scatter_drop(torch.zeros(K * P, dtype=torch.bool,
+                                        device=flat.device), flat,
+                            True).reshape(K, P)
+    src = m.meas_source
+    good_count = torch.sum(m.meas_valid.to(torch.int32), dim=0)    # (P,)
+    root_out = torch.any(out2d & (src == ms.SRC_ROOT), dim=0)
+    point_bad = torch.any(out2d, dim=0) & (root_out | (good_count <= 2))
+    retry = (out2d & ((src == ms.SRC_TRACKER) | (src == ms.SRC_EPIPOLAR))
+             & ~point_bad[None, :])
+    never = out2d & ~retry & ~point_bad[None, :]
+    new_m = dataclasses.replace(
+        m, kf_R=torch.where(adjust_kf[:, None, None], cam_R, m.kf_R),
+        kf_t=torch.where(adjust_kf[:, None], cam_t, m.kf_t),
+        point_pos=torch.where(pt_ok[:, None], pt_pos, m.point_pos),
+        meas_valid=m.meas_valid & ~out2d & ~point_bad[None, :],
+        point_valid=m.point_valid & ~point_bad,
+        never_retry=m.never_retry | never)
+    return ms.refresh_pixel_vectors(new_m), retry
+
+
+def apply_bundle_job(m: MapState, prob, meas_k, meas_p, adjust_kf, point_mask,
+                     failure_mask, cam_idx=None, pt_idx=None):
+    """``apply_bundle`` and the failure-queue accumulation."""
+    out, retry = apply_bundle(m, prob, meas_k, meas_p, adjust_kf, point_mask,
+                              cam_idx, pt_idx)
+    return out, failure_mask | retry
+
+
+def handle_bad_points(m: MapState,
+                      cfg: MapMakerConfig = MapMakerConfig()) -> MapState:
+    """Outlier-count GC (HandleBadPoints): a point with more than
+    ``bad_point_outlier_min`` tracker outliers, and more outliers than
+    inliers, is trashed and its measurements erased."""
+    bad = (m.point_valid & (m.point_outlier > cfg.bad_point_outlier_min)
+           & (m.point_outlier > m.point_inlier))
+    return dataclasses.replace(m, point_valid=m.point_valid & ~bad,
+                               meas_valid=m.meas_valid & ~bad[None, :])
+
+
+# ---------------------------------------------------------------------------
+# Host orchestrator: the BA half
+# ---------------------------------------------------------------------------
+
+class MapMaker:
+    """The mapping side's bundle adjustment and bad-point GC (the BA half
+    of the JAX package's MapMaker). A keyframe waiting in ``kf_queue``
+    aborts a BA run between chunks, as the reference's abort flag does;
+    the keyframe queue's integration and the ``step()`` scheduler that
+    fill it are not ported yet.
+
+    One device only: the JAX MapMaker's ``mesh`` (point-sharded global BA)
+    has no counterpart here, so the constructor takes none.
+
+    ``deterministic``: True runs BA in fixed ``ba_steps_per_pass``
+    chunks, a pure function of the inputs (the parity contract); False
+    (latency mode) sizes chunks from a measured per-step time to fit
+    ``ba_latency_budget_ms``. None picks deterministic for a map on the
+    CPU and latency mode on the card. A chunk reads its flags on the host
+    as it runs (``bundle.lm_chunk``), so it has ended when its dispatch
+    returns, and a poll needs no readiness check.
+    """
+
+    def __init__(self, m: MapState, cam: atan.Camera, image_size,
+                 cfg: MapMakerConfig = MapMakerConfig(),
+                 ba_cfg: BundleConfig = BundleConfig(),
+                 max_ba_meas: int | None = None,
+                 deterministic: bool | None = None):
+        self.map = m
+        self.cam = cam
+        self.image_size = image_size
+        self.cfg = cfg
+        self.ba_cfg = ba_cfg
+        self._kind = mest.estimator_id(ba_cfg.mestimator)
+        self.deterministic = (not m.point_pos.is_cuda if deterministic is None
+                              else deterministic)
+        K, P = m.meas_valid.shape
+        #: Global-BA measurement capacity: keyframe capacity x the
+        #: per-keyframe budget; past it extraction prioritizes and warns.
+        self.max_ba_meas = (min(K * MAX_MEAS_PER_KF, K * P)
+                            if max_ba_meas is None else max_ba_meas)
+        self.failure_mask = torch.zeros(K, P, dtype=torch.bool,
+                                        device=m.meas_valid.device)
+        # BA size tiers (power-of-two caps, see _ba_caps); the floors only
+        # ratchet up (overflow escalation).
+        self._tier_c_floor = 4
+        self._tier_p_floor = 1024
+        self._tier_m_floor = 4096
+        #: Host-side live point-count estimate; the engine refreshes it.
+        self._n_points_hint = 0
+        #: True measurement count of the last BA extract.
+        self._last_n_sel = 0
+        #: Host-side keyframe count (one read here).
+        self._n_kfs_host = int(torch.sum(m.kf_valid.to(torch.int32)))
+        #: Keyframes waiting for integration; a non-empty queue aborts BA.
+        self.kf_queue: list = []
+        #: In-flight BA job (see _ba_start/_ba_poll).
+        self._ba_job = None
+        self._map_dirty = False
+        self.converged_recent = True
+        self.converged_full = True
+        #: Set when BA blows up numerically: the engine must ditch the map.
+        self.reset_requested = False
+        #: Per-LM-step wall time EMA (ms) in latency mode; None until the
+        #: first chunk ends.
+        self._ba_step_ms = None
+
+    def n_kfs(self) -> int:
+        return self._n_kfs_host
+
+    # -- BA: one run, started, then advanced chunk by chunk ---------------
+    def bundle_adjust(self, adjust_kf, fixed_kf, point_mask, recent: bool,
+                      full: bool = False):
+        """A BA run to convergence or abort."""
+        self._ba_start(adjust_kf, fixed_kf, point_mask, recent, full)
+        while self._ba_job is not None:
+            self._ba_poll(block=True)
+
+    def _ba_caps(self):
+        """Power-of-two problem caps from host-known sizes: the keyframe
+        count, the live point-count hint and the last extract's true
+        measurement count, with margins and the ratcheting floors, clamped
+        to the map's capacity and ``max_ba_meas``."""
+        K, P = self.map.meas_valid.shape
+        n_c = max(self._n_kfs_host + len(self.kf_queue), self._tier_c_floor)
+        c_cap = min(_pow2ceil(n_c), _pow2ceil(K))
+        n_p = max(int(self._n_points_hint * 1.5) + 64, self._tier_p_floor)
+        p_cap = min(_pow2ceil(n_p), _pow2ceil(P))
+        n_m = max(int(self._last_n_sel * 1.5), c_cap * 256,
+                  self._tier_m_floor)
+        m_cap = min(_pow2ceil(n_m), _pow2ceil(self.max_ba_meas))
+        return c_cap, p_cap, m_cap
+
+    def _ba_start(self, adjust_kf, fixed_kf, point_mask, recent: bool,
+                  full: bool = False):
+        """Extract the problem; the first LM chunk goes out at the next
+        ``_ba_poll``."""
+        caps = self._ba_caps()
+        prob, mk, mp, cam_idx, pt_idx, counts = extract_bundle_compact(
+            self.map, adjust_kf, fixed_kf, point_mask, *caps)
+        self._ba_job = dict(prob=prob, mk=mk, mp=mp, cam_idx=cam_idx,
+                            pt_idx=pt_idx, adjust=adjust_kf, pmask=point_mask,
+                            recent=recent, full=full, counts=counts,
+                            caps=caps, state=None, iters_done=0)
+
+    def _ba_init_state(self):
+        job = self._ba_job
+        job["state"] = bundlelib.init_lm(job.pop("prob"), self.ba_cfg)
+        job["flags"] = bundlelib.INIT_FLAGS
+        self._ba_dispatch_chunk()
+
+    def _chunk_steps(self) -> int:
+        """LM iterations for the next chunk: a fixed ``ba_steps_per_pass``
+        in deterministic mode; in latency mode the measured per-step time
+        fitted into ``ba_latency_budget_ms`` (capped at ba_steps_per_pass),
+        and a 1-step probe before any measurement."""
+        if self.deterministic:
+            return self.cfg.ba_steps_per_pass
+        if self._ba_step_ms is None:
+            return 1
+        return max(1, min(self.cfg.ba_steps_per_pass,
+                          int(self.cfg.ba_latency_budget_ms
+                              / max(self._ba_step_ms, 1e-3))))
+
+    def _chunk_target(self, job) -> int:
+        """The chunk's iteration limit: iterations so far plus the chunk's
+        steps (all of them for a full run), capped at the maximum."""
+        if job["full"]:
+            return self.ba_cfg.max_iterations
+        return min(job["iters_done"] + self._chunk_steps(),
+                   self.ba_cfg.max_iterations)
+
+    def _ba_dispatch_chunk(self):
+        job = self._ba_job
+        t0 = time.perf_counter()
+        job["iters_before"] = job["iters_done"]
+        job["state"], job["flags"] = bundlelib.lm_chunk(
+            job["state"], self.cam, self.ba_cfg, self._kind,
+            self._chunk_target(job), job["flags"])
+        job["seconds"] = time.perf_counter() - t0
+
+    def _ba_poll(self, block: bool = False):
+        """Advance the in-flight BA job by one chunk. Returns True while
+        busy."""
+        job = self._ba_job
+        if job is None:
+            return False
+        if job["state"] is None:
+            # Extracted, LM not started: a keyframe queued meanwhile
+            # aborts for free.
+            if self.kf_queue and not block:
+                self._ba_job = None
+                return False
+            self._ba_init_state()
+            return True
+        if job["counts"] is not None:
+            n_c, n_p, n_sel = job["counts"].tolist()
+            job["counts"] = None
+            c_cap, p_cap, m_cap = job["caps"]
+            self._last_n_sel = n_sel
+            # Tier escalation: an undersized cap ratchets its floor so the
+            # next extract covers everything (this pass ran on a correct,
+            # prioritized subset); only the largest tier warns.
+            if n_c > c_cap:
+                self._tier_c_floor = max(self._tier_c_floor, n_c)
+            if n_p > p_cap:
+                self._tier_p_floor = max(self._tier_p_floor, int(n_p * 1.25))
+            if n_sel > m_cap:
+                self._tier_m_floor = max(self._tier_m_floor,
+                                         int(n_sel * 1.25))
+            if n_sel > m_cap and m_cap >= self.max_ba_meas:
+                warnings.warn(
+                    f"BA measurement capacity exceeded: {n_sel} selected > "
+                    f"max_ba_meas={self.max_ba_meas}; this pass optimizes a "
+                    f"PRIORITIZED subset (ROOT provenance, scarce points, "
+                    f"newest KFs first). Raise MapMaker(max_ba_meas=...) to "
+                    f"cover the full set.", RuntimeWarning, stacklevel=2)
+        conv, iters, failed, accepted = job["flags"]
+        n_new = iters - job["iters_before"]
+        if not self.deterministic and n_new > 0 and job["seconds"] < 5.0:
+            per_ms = job["seconds"] / n_new * 1000.0
+            self._ba_step_ms = (per_ms if self._ba_step_ms is None
+                                else 0.7 * self._ba_step_ms + 0.3 * per_ms)
+        job["iters_done"] = iters
+        if failed:
+            # Cholesky/NaN blow-up: ditch the map; nothing is applied.
+            self.reset_requested = True
+            self._ba_job = None
+            return False
+        if not (conv or self.kf_queue
+                or iters >= self.ba_cfg.max_iterations):
+            self._ba_dispatch_chunk()
+            return True
+        self.map, self.failure_mask = apply_bundle_job(
+            self.map, job["state"].problem, job["mk"], job["mp"],
+            job["adjust"], job["pmask"], self.failure_mask, job["cam_idx"],
+            job["pt_idx"])
+        self._map_dirty = True
+        if accepted > 0:
+            if job["recent"]:
+                self.converged_recent = False
+            self.converged_full = False
+        if conv:
+            self.converged_recent = True
+            if not job["recent"]:
+                self.converged_full = True
+        self._ba_job = None
+        return False
+
+    def bundle_adjust_all(self, full: bool = False, start_only: bool = False):
+        """Global BA over every valid keyframe (BundleAdjustAll); fixed
+        keyframes stay fixed."""
+        valid = self.map.kf_valid
+        adjust, fixed = valid & ~self.map.kf_fixed, valid & self.map.kf_fixed
+        if start_only:
+            self._ba_start(adjust, fixed, self.map.point_valid, False, full)
+        else:
+            self.bundle_adjust(adjust, fixed, self.map.point_valid, False,
+                               full)
+
+    def bundle_adjust_recent(self, newest, start_only: bool = False):
+        """Local BA (BundleAdjustRecent): the newest keyframe and its 4
+        nearest adjusted, the other observers fixed; a map of fewer than 8
+        keyframes counts as converged."""
+        if self.n_kfs() < 8:
+            self.converged_recent = True
+            return
+        adjust, fixed, pts = local_ba_masks(self.map, newest)
+        if start_only:
+            self._ba_start(adjust, fixed, pts, True)
+        else:
+            self.bundle_adjust(adjust, fixed, pts, True)
+
+    def handle_bad_points(self):
+        """Bad-point GC, run only after the map changed (``mark_dirty``)."""
+        if not self._map_dirty:
+            return
+        self.map = handle_bad_points(self.map, self.cfg)
+        self._map_dirty = False
+
+    def mark_dirty(self):
+        self._map_dirty = True

@@ -87,3 +87,27 @@ def weight(err_sq: Tensor, sigma_sq: Tensor, kind: int = TUKEY) -> Tensor:
         return torch.where(err_sq < s, 1.0,
                            torch.sqrt(s / torch.clamp(err_sq, min=1e-12)))
     return torch.ones_like(err_sq)
+
+
+def sqrt_weight(err_sq: Tensor, sigma_sq: Tensor, kind: int = TUKEY) -> Tensor:
+    """Square root of ``weight`` (Tukey's in closed form)."""
+    s = torch.clamp(sigma_sq, min=1e-12)
+    if kind == TUKEY:
+        return torch.where(err_sq > s, 0.0, 1.0 - err_sq / s)
+    return torch.sqrt(weight(err_sq, sigma_sq, kind))
+
+
+def objective(err_sq: Tensor, sigma_sq: Tensor, kind: int = TUKEY) -> Tensor:
+    """Robust objective score; Tukey's is scaled as in the reference (no
+    sigma^2/6 factor)."""
+    s = torch.clamp(sigma_sq, min=1e-12)
+    if kind == TUKEY:
+        d = 1.0 - err_sq / s
+        return torch.where(err_sq > s, 1.0, 1.0 - d * d * d)
+    if kind == CAUCHY:
+        return torch.log1p(err_sq / s)
+    if kind == HUBER:
+        sig = torch.sqrt(s)
+        err = torch.sqrt(torch.clamp(err_sq, min=0.0))
+        return torch.where(err_sq < s, 0.5 * err_sq, sig * (err - 0.5 * sig))
+    return err_sq

@@ -61,6 +61,17 @@ _JAX_PACKAGE = re.compile(
     r"|import\s+(\S+\s*,\s*)*ptam_cg_tpu(\.\S+)?(\s|,|$))")
 
 
+#: Modules whose scan the tests below must include (the port's slices).
+SCANNED = ("models/tracker.py", "models/keyframe.py", "models/mapmaker.py",
+           "models/bundle.py", "utils/mest.py", "io/synth.py",
+           "io/from_jax.py")
+
+
+def test_source_scan_covers_every_slice():
+    files = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
+    assert set(SCANNED) <= files, set(SCANNED) - files
+
+
 def test_no_source_line_imports_the_jax_package():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     offenders = [f"{p.relative_to(ROOT)}:{i}" for p in files
@@ -82,7 +93,9 @@ def _entry_points():
             from_jax.camera_from_numpy, from_jax.sbi_from_numpy,
             from_jax.track_features_from_numpy,
             from_jax.frame_features_from_numpy,
-            from_jax.map_state_from_numpy, from_jax.tracker_state_from_numpy]
+            from_jax.map_state_from_numpy, from_jax.tracker_state_from_numpy,
+            from_jax.bundle_problem_from_numpy, from_jax.lm_state_from_numpy,
+            synth.ba_problem, synth.ba_map]
 
 
 def test_entry_points_default_to_the_card():
