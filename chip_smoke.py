@@ -1,5 +1,5 @@
-"""Run the PyTorch port's tracking step, keyframe integration and bundle
-adjustment on one NVIDIA GPU.
+"""Run the PyTorch port's tracking step, keyframe integration, bundle
+adjustment, stereo init and relocalization on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -20,7 +20,9 @@ Phases, each fatal on failure:
 3. K2 (window gather) against its plain version at the window shapes of
    the tracking and keyframe paths, f32 and bool, int64 and int32 origin
    columns, strided and contiguous, and the pair entry (image and mask
-   windows in one launch) at the three search shapes: bit-identical.
+   windows in one launch) at the three search shapes: bit-identical; and
+   the bootstrap path's shapes: the trail search pair (D=29, M=21), the
+   9x9 MiniPatch and 8x8 template cuts.
    Phases 2-3 time every path call: CUDA events (kernel, plain version,
    and for K2 the one PyTorch call that computes the same windows, an
    unfolded view indexed at the origins), device time from torch.profiler,
@@ -63,7 +65,9 @@ Phases, each fatal on failure:
    ``compute`` by CUDA events and the host clock, device us and kernels a
    step (profiler), host reads a step and a run (sync debug mode: one a
    lambda try, and one a problem), peak memory, and the dominant Schur
-   product against its bound;
+   product against its bound; and the largest difference between the
+   card's and the CPU's ATAN projection of the problem's points, in ulps
+   of the pixel coordinate and in px;
 9. the MapMaker's BA (deterministic mode): global BA, then local BA of
    the newest keyframe, on ``synth.ba_map``'s 64 keyframes in 128 slots
    and 4096 point slots, twice on the card (bit-identical), once in the
@@ -75,7 +79,31 @@ Phases, each fatal on failure:
    count, as the engine sets it), the same card-vs-CPU bars, frames
    41..60 tracked GOOD at phase 4's bars against the adjusted map, and
    the number of phase 6's wrong epipolar points (|z| > 0.05) that BA
-   pruned, printed.
+   pruned, printed;
+10. the bootstrap path on tests/test_slam_e2e.py's orbit (seed 5, height
+   1.5, radius 0.35, sweep 1.3, 26 frames) at full width, with the
+   engine's capacities (2048 point and 16 keyframe slots), 300 MLESAC
+   trials on up to 1024 matches: ``build_frame`` and trail tracking on
+   frames 0..6, ``init_from_stereo`` on frames 0 and 6 (it must succeed,
+   and the map's points lie on the aligned plane: median |z| < 0.02 of
+   the scene depth), then ``track_frame_from_image`` from the returned
+   pose on frames 7..25, every frame GOOD, each frame's rotation relative
+   to frame 0 within 0.01 rad of the truth and the camera path within
+   0.02 of it after a similarity alignment. The launch counts of trail
+   tracking and init must equal those the code makes. The card against
+   the CPU port: trails per frame from the same trails (the same good set
+   and positions up to differences traced to float noise, under 1%), the
+   homography from the same matches and uniforms (the same success and
+   inliers, H within 1e-4), and init from the same trails and uniforms
+   (both succeed; point sets within 1%; keyframe 1's pose, the points
+   and wiggle_depth_norm, scaled by keyframe 1's |t|, within the INIT_*
+   bars); the CPU on one thread gives the spread that summation order
+   alone makes. Then
+   relocalization: frame 7 tracked from the identity pose is lost;
+   ``attempt_recovery`` must pick the keyframe nearest the truth and
+   succeed, card = CPU, and the frame tracked from its pose is GOOD.
+   Timed: ``trail_advance`` a frame, ``homography.compute``, the whole
+   ``init_from_stereo`` with its BA-run count, and ``attempt_recovery``.
 The line before the last is a JSON summary of the kernels (numbers summed
 over a tracked frame's calls, K3's over a keyframe's); the last line is
 the JSON result. Times are medians of CUDA-event timings.
@@ -128,6 +156,22 @@ BA_PT_P99_TOL = 5e-3
 BA_PT_MAX_TOL = 1e-2
 BA_ERR_RTOL = 1.5e-4
 WRONG_Z = 0.05       # a new point further off the z=0 plane is wrong
+# Phase 10: tests/test_slam_e2e.py's orbit and candidate threshold; trails
+# run on frames 0..N_TRAIL (the e2e's auto-init after 6 frames).
+INIT_SEQ = dict(n_frames=26, seed=5, height=1.5, radius=0.35, sweep=1.3)
+N_TRAIL = 6
+INIT_CAND_MIN = 70.0
+INIT_MAP = dict(max_points=2048, max_kfs=16)   # the engine's capacities
+LOST_FRAME = 7
+# Card against CPU init, after dividing by keyframe 1's |t| (the scale is
+# free): keyframe 1's pose, the points by their 99th percentile, and
+# wiggle_depth_norm times |t|, relative. Each is ~3x the larger of two
+# spreads measured on one H100 at 700 W (PERF.md §6): card against CPU,
+# and the CPU port on 1 against 8 threads: pose 2.3e-6, points 1.9e-6,
+# wiggle norm 1.8e-7.
+INIT_POSE_TOL = 7e-6
+INIT_PT_P99_TOL = 6e-6
+INIT_WIGGLE_RTOL = 5e-7
 
 
 def fail(msg):
@@ -314,6 +358,33 @@ def ba_repeats(torch, tier, prob, cam):
           f"{fa[2]}, RMS {rms0} -> {rms1}")
 
 
+def atan_ulps(torch, tier, c_prob, c_cam, cam, card):
+    """The card's and the CPU's ATAN projection of the same z=1-plane
+    points (the problem's measurements' points, projected on the CPU):
+    the largest difference in ulps of the pixel coordinate (over the
+    coordinates of at least 1 px: near 0 an ulp is no measure of a
+    pixel), the largest difference in px, and how many points differ."""
+    from ptam_cg_tpu_torch.camera import atan
+    mc, mp = c_prob.meas_cam.long(), c_prob.meas_pt.long()
+    p_cam = ((c_prob.cam_R[mc] @ c_prob.pt_pos[mp][..., None])[..., 0]
+             + c_prob.cam_t[mc])
+    z1 = p_cam[:, :2] / p_cam[:, 2:3]
+    pix_c = atan.project(z1, c_cam)
+    pix_g = atan.project(z1.to(cam.focal.device), cam).cpu()
+    diff = (pix_g - pix_c).abs()
+    mag = torch.maximum(pix_c.abs(), pix_g.abs())
+    ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+    ulps = torch.where(mag >= 1.0, diff / ulp, 0.0)
+    worst = float(ulps.max())
+    at = int(torch.argmax(ulps.max(dim=1).values))
+    print(f"[8] ATAN projection of {z1.shape[0]} points ({tier}), card vs "
+          f"CPU: largest difference {worst:.0f} ulps of the coordinate (at "
+          f"radius {float(z1[at].norm()):.3f} on the z=1 plane, pixel "
+          f"{pix_c[at].tolist()}), {float(diff.max()):.3e} px at most, "
+          f"{int((diff > 0).any(dim=1).sum())} points differ  [{card}]")
+    return worst
+
+
 def ba_tier(torch, dev, card, tier, C, P, M):
     """Phase 8 at one tier: card runs, card vs CPU, times and counts.
 
@@ -341,6 +412,7 @@ def ba_tier(torch, dev, card, tier, C, P, M):
                                  device=dev)
     c_prob, c_cam = to_device(prob, "cpu"), to_device(cam, "cpu")
     rms0 = float(bundle.residual_rms(prob, cam))
+    atan_ulps(torch, tier, c_prob, c_cam, cam, card)
 
     # One step, card against CPU.
     s0 = bundle.init_lm(prob)
@@ -568,6 +640,351 @@ def ba_mapmaker_phase6(torch, card, mk2, new_mask, cam, cpu_cam):
           f"{int(wrong.sum())}, pruned by BA {pruned}  [{card}]")
     check_makers(masks, d, "phase 9 (phase-6 map)")
     return a.map
+
+def host_ms(fn, torch, reps=REPS):
+    """Median over ``reps`` host-clock timings of one synchronized call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def similarity_align(src, dst):
+    """Umeyama: the scale s, rotation R and shift t that best map the
+    (N, 3) points ``src`` onto ``dst`` (numpy, float64)."""
+    import numpy as np
+    ms_, md = src.mean(0), dst.mean(0)
+    a, b = src - ms_, dst - md
+    U, S, Vt = np.linalg.svd(b.T @ a / len(src))
+    D = np.eye(3)
+    D[2, 2] = np.sign(np.linalg.det(U @ Vt))
+    R = U @ D @ Vt
+    s = np.trace(np.diag(S) @ D) / np.mean(np.sum(a * a, axis=1))
+    return s, R, md - s * R @ ms_
+
+
+def init_outcome(torch, mk):
+    """A finished init's map, scale-free: (point-valid mask, keyframe 1's
+    R, its t over |t|, points over |t|, wiggle_depth_norm times |t|), on
+    the CPU."""
+    m = mk.map
+    t1 = m.kf_t[1].cpu()
+    n = float(torch.linalg.vector_norm(t1))
+    return (m.point_valid.cpu(), m.kf_R[1].cpu(), t1 / n,
+            m.point_pos.cpu() / n, mk.wiggle_depth_norm * n)
+
+
+def init_diffs(torch, a, b):
+    """(point-valid differences, |d R|, |d t|, 99th percentile of |d
+    point| over the points valid in both, relative d wiggle norm) of two
+    ``init_outcome``s."""
+    va, vb = a[0], b[0]
+    both = va & vb
+    d_pt = (a[3][both] - b[3][both]).abs().max(dim=1).values
+    return (int((va != vb).sum()), max_abs_diff(a[1], b[1]),
+            max_abs_diff(a[2], b[2]), float(torch.quantile(d_pt, 0.99)),
+            abs(a[4] - b[4]) / abs(b[4]))
+
+
+def fmt_init(d):
+    return (f"point-valid differences {d[0]}, keyframe 1 |dR| {d[1]:.2e} "
+            f"|dt| {d[2]:.2e}, points 99th percentile {d[3]:.2e}, "
+            f"wiggle norm rel. {d[4]:.2e}")
+
+
+def bootstrap(torch, dev, card, kernels, reset_counts, counts):
+    """Phase 10: trail tracking, stereo init, tracking from the new map,
+    card against CPU, relocalization."""
+    import numpy as np
+    from ptam_cg_tpu_torch.config import (InitConfig, MapMakerConfig,
+                                          TrackerConfig)
+    from ptam_cg_tpu_torch.io import synth
+    from ptam_cg_tpu_torch.models import homography, initializer
+    from ptam_cg_tpu_torch.models import keyframe as kflib
+    from ptam_cg_tpu_torch.models import map_state as ms
+    from ptam_cg_tpu_torch.models import mapmaker, relocalizer, tracker
+    from ptam_cg_tpu_torch.utils import parity, se3
+    from ptam_cg_tpu_torch.utils.tree import to_device
+
+    seq = synth.SyntheticSequence(REF_PARAMS, image_size=SIZE, device=dev,
+                                  **INIT_SEQ)
+    W, H = SIZE
+    n_frames = INIT_SEQ["n_frames"]
+    frames = [seq.frame(i) for i in range(n_frames)]
+    cam_params = torch.tensor(REF_PARAMS, device=dev)
+    cpu_cam = to_device(seq.cam, "cpu")
+    icfg, mm_cfg = InitConfig(), MapMakerConfig()
+    max_trails = TrackerConfig().max_initial_trails
+    gen = torch.Generator().manual_seed(10)
+    u_mlesac = torch.rand((icfg.mlesac_trials, icfg.max_matches),
+                          generator=gen)
+    u_plane = torch.rand((mm_cfg.plane_aligner_ransacs,
+                          INIT_MAP["max_points"]), generator=gen)
+
+    def build(im):
+        return kflib.build_frame(im, candidate_min_score=INIT_CAND_MIN)
+
+    def new_maker(device, cam):
+        return mapmaker.MapMaker(ms.empty_map(SIZE, device=device,
+                                              **INIT_MAP), cam, SIZE, seed=0)
+
+    def delta(before):
+        return {n: c - before[n] for n, c in counts().items()}
+
+    # ---- trail tracking on frames 0..N_TRAIL ----
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    ffs = [build(frames[0])]
+    trails = [initializer.trail_start(ffs[0], SIZE, max_trails)]
+    diags, n_good = [], []
+    for i in range(1, N_TRAIL + 1):
+        ffs.append(build(frames[i]))
+        d = {}
+        tr, n = initializer.trail_advance(trails[-1], ffs[i - 1], ffs[i],
+                                          SIZE, diag=d)
+        trails.append(tr)
+        diags.append(d)
+        n_good.append(int(n))
+    trail_s = time.perf_counter() - t0
+    trail_counts = counts()
+    n_start = int(trails[0].valid.sum())
+    print(f"[10] {W}x{H}, candidates a level in frame 0 "
+          f"{ffs[0].cand_valid.sum(-1).tolist()}; {trails[0].valid.shape[0]}"
+          f" trails, {n_start} valid at the start; good after each frame "
+          f"{n_good}; {trail_s * 1e3:.1f} ms for 7 builds and 6 advances "
+          f"(host clock); launches {trail_counts}")
+    # Each build: K1 and K3 once; the start cuts the MiniPatches (K2);
+    # each advance: the forward search pair, the backward cut and the
+    # backward search pair (K2).
+    per_trail = {"fast10": 1, "shi_tomasi": 1, "gather_windows": 3}
+    want = {name: 1 + N_TRAIL * n for name, n in per_trail.items()}
+    check(trail_counts == want, f"trail-tracking launch counts differ from "
+          f"{want}")
+    check(n_good[-1] >= 0.5 * n_start > 50, f"too few trails survive: "
+          f"{n_good}")
+
+    # ---- stereo init ----
+    mk = new_maker(dev, seq.cam)
+    stats = {}
+    before = counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    pose2 = initializer.init_from_stereo(
+        mk, ffs[0], ffs[-1], trails[-1], u_mlesac.to(dev), u_plane.to(dev),
+        icfg, stats=stats)
+    end.record()
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    init_ev = start.elapsed_time(end)
+    init_counts = delta(before)
+    hres = stats["homography"]
+    check(pose2 is not None, "stereo init failed on the card")
+    m = mk.map
+    n_pts = int(m.point_valid.sum())
+    n_epi = int(mk.new_point_mask.sum())
+    depth = float(m.kf_depth_mean[0])
+    z = m.point_pos[m.point_valid, 2].abs() / depth
+    z_epi = m.point_pos[mk.new_point_mask & m.point_valid, 2].abs() / depth
+    med_z = float(z.median())
+    print(f"[10] init from frames 0 and {N_TRAIL}: homography "
+          f"{int(hres.n_inliers)} inliers of {n_good[-1]} matches; "
+          f"{n_pts} points ({n_epi} from the epipolar expansion), "
+          f"{stats['n_ba']} BA runs; scene depth {depth:.4f}; |z| / depth: "
+          f"median {med_z:.2e} (epipolar points "
+          f"{float(z_epi.median()) if n_epi else float('nan'):.2e}), 90th "
+          f"percentile {float(torch.quantile(z, 0.9)):.2e}; "
+          f"wiggle_depth_norm {mk.wiggle_depth_norm:.5f}; {init_ms:.1f} ms "
+          f"(host clock), {init_ev:.1f} ms (CUDA events); launches "
+          f"{init_counts}  [{card}]")
+    # Init: the 8x8 template cuts and the sub-pixel windows (K2), then per
+    # epipolar level templates, corner patches and sub-pixel windows.
+    want_init = {"fast10": 0, "shi_tomasi": 0, "gather_windows": 2 + 3 * 4}
+    check(init_counts == want_init, f"init launch counts differ from "
+          f"{want_init}")
+    check(med_z < 0.02, f"init's points are off the aligned plane: median "
+          f"|z| / depth {med_z}")
+
+    # ---- tracking from the new map ----
+    before = counts()
+    state = tracker.init_tracker_state(pose2, seed=2)
+    prev = ffs[-1].sbi_track
+    est = {0: se3.SE3(m.kf_R[0], m.kf_t[0]), N_TRAIL: pose2}
+    quality, found = {}, []
+    for i in range(N_TRAIL + 1, n_frames):
+        out = tracker.track_frame_from_image(
+            state, m, frames[i], prev, seq.cam, SIZE, cam_params,
+            wiggle_scale=mm_cfg.wiggle_scale)
+        state, prev = out.state, out.sbi_track
+        est[i] = state.pose
+        quality[i] = int(state.quality)
+        found.append(int(out.result.found.sum()))
+    track_counts = delta(before)
+    idx = sorted(est)
+    c_est = np.stack([(-(est[i].R.T @ est[i].t)).cpu().double().numpy()
+                      for i in idx])
+    c_gt = np.stack([(-(seq.pose(i).R.T @ seq.pose(i).t)).cpu().double()
+                     .numpy() for i in idx])
+    s_, R_, t_ = similarity_align(c_est, c_gt)
+    path_err = np.linalg.norm(c_est @ (s_ * R_).T + t_ - c_gt, axis=1)
+    R0, G0 = est[0].R, seq.pose(0).R
+
+    def rot_err(i):
+        rel = (est[i].R @ R0.T) @ (seq.pose(i).R @ G0.T).T
+        return float(torch.linalg.vector_norm(se3.so3_log(rel)))
+
+    r_errs = [rot_err(i) for i in idx]
+    bad = [i for i, q in quality.items() if q != tracker.QUALITY_GOOD]
+    print(f"[10] frames {N_TRAIL + 1}..{n_frames - 1} tracked from init's "
+          f"pose: qualities not GOOD {bad}; found a frame min {min(found)} "
+          f"max {max(found)}; rotation relative to frame 0 off the truth by "
+          f"at most {max(r_errs):.2e} rad; camera path after a similarity "
+          f"alignment (scale {s_:.4f}) off by at most {path_err.max():.2e}; "
+          f"launches {track_counts}")
+    check(not bad, f"frames not GOOD after init: {bad}")
+    check(max(r_errs) < 0.01, f"rotation off the truth: {max(r_errs)}")
+    check(path_err.max() < 0.02, f"camera path off the truth: "
+          f"{path_err.max()}")
+    want_track = {name: k["launches_per_frame"] * (n_frames - N_TRAIL - 1)
+                  for name, k in kernels.items()}
+    check(track_counts == want_track, "tracking launch counts after init "
+          "differ")
+    for name, n in counts().items():
+        kernels[name]["launches"] += n
+
+    # ---- card against CPU ----
+    cff = [to_device(f, "cpu") for f in ffs]
+    tdiffs, n_cmp = [], 0
+    for i in range(1, N_TRAIL + 1):
+        d = {}
+        ctr, _ = initializer.trail_advance(to_device(trails[i - 1], "cpu"),
+                                           cff[i - 1], cff[i], SIZE, diag=d)
+        tdiffs += parity.trail_differences(trails[i], ctr, diags[i - 1], d,
+                                           initializer.MINI_MAX_SSD)
+        n_cmp += int(ctr.valid.sum())
+    for d in tdiffs:
+        print(f"[10] trail difference: {d}")
+    check(all(d["reason"] for d in tdiffs), "unexplained trail difference")
+    check(len(tdiffs) < 0.01 * n_cmp, "too many trail differences")
+
+    c_trails = to_device(trails[-1], "cpu")
+    matches = initializer.trails_to_matches(c_trails, cpu_cam,
+                                            icfg.max_matches)
+    cres = homography.compute(matches, u_mlesac, icfg.mlesac_sigma,
+                              icfg.refine_iterations)
+    Hg = hres.H.cpu() / torch.linalg.matrix_norm(hres.H.cpu())
+    Hc = cres.H / torch.linalg.matrix_norm(cres.H)
+    d_H = min(max_abs_diff(Hg, Hc), max_abs_diff(Hg, -Hc))
+    print(f"[10] homography, card vs CPU: success {bool(hres.success)} / "
+          f"{bool(cres.success)}, inliers {int(hres.n_inliers)} / "
+          f"{int(cres.n_inliers)}, H/|H| {d_H:.2e} apart (up to sign)")
+    check(bool(hres.success) == bool(cres.success)
+          and int(hres.n_inliers) == int(cres.n_inliers) and d_H <= 1e-4,
+          "card and CPU homographies differ")
+
+    outs = {}
+    n_threads = torch.get_num_threads()
+    for name, threads in (("cpu", n_threads), ("cpu1", 1)):
+        torch.set_num_threads(threads)
+        cmk = new_maker("cpu", cpu_cam)
+        t0 = time.perf_counter()
+        cpose = initializer.init_from_stereo(cmk, cff[0], cff[-1], c_trails,
+                                             u_mlesac, u_plane, icfg)
+        outs[name] = (cpose is not None, init_outcome(torch, cmk),
+                      time.perf_counter() - t0)
+    torch.set_num_threads(n_threads)
+    check(outs["cpu"][0] and outs["cpu1"][0], "stereo init failed on the CPU")
+    g = init_outcome(torch, mk)
+    d_card = init_diffs(torch, g, outs["cpu"][1])
+    d_thr = init_diffs(torch, outs["cpu1"][1], outs["cpu"][1])
+    print(f"[10] init, card vs CPU: {fmt_init(d_card)}; CPU 1 vs "
+          f"{n_threads} threads: {fmt_init(d_thr)}; CPU init "
+          f"{outs['cpu'][2]:.2f} s")
+    check(d_card[0] <= 0.01 * n_pts, "card and CPU init differ in points")
+    check(max(d_card[1], d_card[2]) <= INIT_POSE_TOL
+          and d_card[3] <= INIT_PT_P99_TOL and d_card[4] <= INIT_WIGGLE_RTOL,
+          "card and CPU init differ")
+
+    # ---- relocalization ----
+    sbi_size = ((H >> 3) // 2, (W >> 3) // 2)
+    lost_ff = kflib.build_frame_tracking(frames[LOST_FRAME])
+    lost = tracker.track_frame(
+        tracker.init_tracker_state(se3.identity(dev), seed=3), m, lost_ff,
+        prev_sbi=ffs[-1].sbi_track, cam=seq.cam, image_size=SIZE,
+        cam_params=cam_params, wiggle_scale=mm_cfg.wiggle_scale)
+    rr = relocalizer.attempt_recovery(m, lost_ff.sbi, cam_params, sbi_size)
+    gt_c = -(seq.pose(LOST_FRAME).R.T @ seq.pose(LOST_FRAME).t)
+    kf_frames = (0, N_TRAIL)
+    nearest = int(np.argmin([float(torch.linalg.vector_norm(
+        gt_c + seq.pose(f).R.T @ seq.pose(f).t)) for f in kf_frames]))
+    rec_state = dataclasses.replace(
+        tracker.init_tracker_state(rr.pose, seed=3),
+        just_recovered=torch.ones((), dtype=torch.bool, device=dev))
+    rec = tracker.track_frame(rec_state, m, lost_ff, ffs[-1].sbi_track,
+                              seq.cam, SIZE, cam_params,
+                              wiggle_scale=mm_cfg.wiggle_scale)
+    c_rec = (-(rec.state.pose.R.T @ rec.state.pose.t)).cpu().double().numpy()
+    rec_err = float(np.linalg.norm(s_ * R_ @ c_rec + t_
+                                   - gt_c.cpu().double().numpy()))
+    crr = relocalizer.attempt_recovery(
+        to_device(m, "cpu"), to_device(lost_ff.sbi, "cpu"), cam_params.cpu(),
+        sbi_size)
+    d_rel = max(max_abs_diff(rr.pose.R.cpu(), crr.pose.R),
+                max_abs_diff(rr.pose.t.cpu(), crr.pose.t))
+    d_score = abs(float(rr.score) - float(crr.score)) / max(
+        abs(float(crr.score)), 1.0)
+    print(f"[10] relocalization of frame {LOST_FRAME}: tracked from the "
+          f"identity its quality is {int(lost.state.quality)}; best keyframe "
+          f"{int(rr.best_kf)} (nearest by the truth {nearest}), score "
+          f"{float(rr.score):.1f}, success {bool(rr.success)}; tracked from "
+          f"the recovered pose: quality {int(rec.state.quality)}, centre "
+          f"{rec_err:.2e} off the aligned truth; card vs CPU: best keyframe "
+          f"{int(crr.best_kf)}, success {bool(crr.success)}, score rel. "
+          f"{d_score:.2e}, pose {d_rel:.2e}")
+    check(int(lost.state.quality) != tracker.QUALITY_GOOD,
+          "the frame tracked from the identity pose was not lost")
+    check(int(rr.best_kf) == nearest and bool(rr.success),
+          "relocalization did not recover")
+    check(int(rec.state.quality) == tracker.QUALITY_GOOD and rec_err < 0.02,
+          "the recovered frame did not track GOOD")
+    check(int(crr.best_kf) == int(rr.best_kf)
+          and bool(crr.success) == bool(rr.success) and d_rel <= 1e-4
+          and d_score <= 1e-4, "card and CPU relocalization differ")
+
+    # ---- times ----
+    adv = lambda _: initializer.trail_advance(  # noqa: E731
+        trails[-2], ffs[-2], ffs[-1], SIZE)
+    u_dev = u_mlesac.to(dev)
+    g_matches = initializer.trails_to_matches(trails[-1], seq.cam,
+                                              icfg.max_matches)
+    hom = lambda _: homography.compute(  # noqa: E731
+        g_matches, u_dev, icfg.mlesac_sigma, icfg.refine_iterations)
+    rel = lambda _: relocalizer.attempt_recovery(  # noqa: E731
+        m, lost_ff.sbi, cam_params, sbi_size)
+    rows = []
+    for what, fn in (("trail_advance a frame", adv),
+                     ("homography.compute", hom),
+                     ("attempt_recovery", rel)):
+        ev = time_ms(fn, torch, reps=10)
+        host = host_ms(lambda: fn(None), torch, reps=10)
+        dev_k, n_k = device_us(fn, torch, n=3)
+        rows.append(f"{what} {ev:.3f} ms (CUDA events), {host:.3f} ms (host "
+                    f"clock), device {fmt_us(dev_k)} in {n_k:.0f} kernels")
+    print(f"[10] times: {'; '.join(rows)}; init_from_stereo {init_ms:.1f} "
+          f"ms (host clock), {init_ev:.1f} ms (CUDA events) with "
+          f"{stats['n_ba']} BA runs  [{card}]")
+    for name, k in kernels.items():
+        k["launches_per_trail_frame"] = per_trail[name]
+        k["launches_per_init"] = want_init[name]
+
 
 
 def main():
@@ -831,13 +1248,18 @@ def main():
 
     k = kernels["gather_windows"]
     # (source, N, window side, what, the dtype the path gathers there,
-    #  launches a frame, a keyframe)
+    #  launches a frame, a keyframe; the bootstrap path's shapes, with
+    #  the launches a trail-tracking frame and an init, after them)
     singles = [(kf_atlases, 128, 28, "coarse templates", "f32", 1, 0),
                (kf_atlases, 1024, 28, "fine templates", "f32", 1, 0),
                (kf_atlases, 2048, 28, "re-find templates", "f32", 0, 1),
                (kf_atlases, 512, 28, "epipolar templates", "f32", 0, 4),
                (frame_atlas, 2048, 8, "epipolar corner patches", "f32", 0, 4),
-               (frame_atlas, 512, 15, "sub-pixel window", "f32", 0, 4)]
+               (frame_atlas, 512, 15, "sub-pixel window", "f32", 0, 4),
+               (frame_atlas, 512, 9, "MiniPatch cuts (trails: 1 a frame)",
+                "f32", 0, 0),
+               (frame_atlas, 512, 8, "template cuts (init: 1)", "f32", 0,
+                0)]
     def forms(oy, ox):
         """The origin columns as the path holds them (int64 views of one
         (N, 2) tensor), contiguous, and int32."""
@@ -878,7 +1300,8 @@ def main():
     # points in one launch, the mask 4 px (half a patch) further in.
     pairs = [(128, 40, 33, "coarse search", 1, 0),
              (1024, 30, 23, "fine search", 1, 0),
-             (2048, 16, 9, "re-find search", 0, 1)]
+             (2048, 16, 9, "re-find search", 0, 1),
+             (512, 29, 21, "trail search (2 a trail-tracking frame)", 0, 0)]
     for n, D, M, what, per_frame, per_kf in pairs:
         oy, ox = origins(frame_atlas, n, D)
         oy.clamp_(0, Ha - D)
@@ -1226,6 +1649,9 @@ def main():
           f"{expected}")
     check(not bad, "frames off the bars after BA")
     check(launches == expected, "phase-9 tracking launch counts differ")
+
+    # ---- 10. the bootstrap path: trails, stereo init, relocalization ----
+    bootstrap(torch, dev, card, kernels, reset_launch_counts, launch_counts)
 
     check(not any(k == "jax" or k.startswith("jax.") for k in sys.modules),
           "jax was imported")

@@ -1,5 +1,8 @@
-"""PyTorch + CUDA port of ``ptam_cg_tpu`` (tracking and keyframe
-integration).
+"""PyTorch + CUDA port of ``ptam_cg_tpu``: tracking (``models.tracker``),
+keyframe integration and the mapping jobs (``models.keyframe``,
+``models.mapmaker``), bundle adjustment (``models.bundle``), stereo init
+(``models.homography``, ``models.initializer``) and relocalization
+(``models.relocalizer``).
 
 The layout mirrors the JAX package module by module; ``kernels/`` and
 ``csrc/`` hold the hand-written Hopper kernels and their plain PyTorch

@@ -16,7 +16,7 @@ import torch
 
 from ptam_cg_tpu_torch.camera.atan import Camera
 from ptam_cg_tpu_torch.config import BundleConfig
-from ptam_cg_tpu_torch.models import bundle
+from ptam_cg_tpu_torch.models import bundle, homography, initializer
 from ptam_cg_tpu_torch.models.keyframe import FrameFeatures, TrackFeatures
 from ptam_cg_tpu_torch.models.map_state import MapState
 from ptam_cg_tpu_torch.models.tracker import TrackerState
@@ -107,3 +107,24 @@ def lm_state_from_numpy(d: dict, device="cuda",
     return dataclasses.replace(state, **{
         f.name: tensor(d[f.name], device) for f in dataclasses.fields(state)
         if f.name not in ("problem", "layout")})
+
+
+def trail_state_from_numpy(d: dict, device="cuda") -> initializer.TrailState:
+    """From a JAX TrailState."""
+    return initializer.TrailState(**_fields(initializer.TrailState, d,
+                                            device))
+
+
+def matches_from_numpy(d: dict, device="cuda") -> homography.Matches:
+    """From JAX homography Matches."""
+    return homography.Matches(**_fields(homography.Matches, d, device))
+
+
+def homography_result_from_numpy(d: dict, device="cuda"
+                                 ) -> homography.HomographyResult:
+    """From a JAX HomographyResult."""
+    return homography.HomographyResult(
+        se3_second_from_first=se3_from_numpy(d["se3_second_from_first"],
+                                             device),
+        H=tensor(d["H"], device), n_inliers=tensor(d["n_inliers"], device),
+        success=tensor(d["success"], device))

@@ -1,7 +1,8 @@
 """The mapping engine's jobs (port of ``ptam_cg_tpu.models.mapmaker``):
-keyframe integration, bundle adjustment glue and bad-point GC, and the BA
-half of ``MapMaker``. The integrate queue and the ``step()`` scheduler are
-not ported yet.
+keyframe integration, the epipolar job, bundle adjustment glue, bad-point
+GC, the dominant-plane alignment, and a ``MapMaker`` with the methods
+bundle adjustment and stereo init use. The integrate queue, the failure
+queue and the ``step()`` scheduler are not ported yet.
 
 Keyframe integration inserts the new keyframe, writes the tracker's
 measurements, re-finds every map point in it (``refind_in_kf``), then
@@ -389,17 +390,29 @@ def integrate_insert_program(m: MapState, features: FrameFeatures, pose: SE3,
     return m, slot.to(torch.int32)
 
 
+def epipolar_job(m: MapState, src_kf, new_point_mask: Tensor, level: int,
+                 cam: atan.Camera, image_size, wiggle_scale: float,
+                 thin_radius: float, diag: dict | None = None):
+    """AddSomeMapPoints: ``add_points_epipolar`` at ``level`` against the
+    keyframe closest to ``src_kf``, chosen on the device.
+    Returns (map, n_added, new_point_mask | added)."""
+    tgt = closest_kf(m, src_kf)
+    m, n, mask = add_points_epipolar(m, src_kf, tgt, level, cam, image_size,
+                                     wiggle_scale, thin_radius, diag=diag)
+    return m, n, new_point_mask | mask
+
+
 def integrate_epi_program(m: MapState, slot, new_point_mask: Tensor, total,
                           level: int, cam: atan.Camera, image_size,
                           wiggle_scale: float, thin_radius: float,
                           diag: dict | None = None):
-    """One epipolar level of keyframe integration (AddSomeMapPoints)
-    against the keyframe closest to ``slot``.
-    Returns (map, new-point mask, running total of added points)."""
-    tgt = closest_kf(m, slot)
-    m, n, mask = add_points_epipolar(m, slot, tgt, level, cam, image_size,
-                                     wiggle_scale, thin_radius, diag=diag)
-    return m, new_point_mask | mask, total + n
+    """One epipolar level of keyframe integration (``epipolar_job`` from
+    ``slot``). Returns (map, new-point mask, running total of added
+    points)."""
+    m, n, new_point_mask = epipolar_job(m, slot, new_point_mask, level, cam,
+                                        image_size, wiggle_scale,
+                                        thin_radius, diag=diag)
+    return m, new_point_mask, total + n
 
 
 def integrate_keyframe_program(m: MapState, features: FrameFeatures,
@@ -638,16 +651,78 @@ def handle_bad_points(m: MapState,
                                meas_valid=m.meas_valid & ~bad[None, :])
 
 
+def plane_aligner(m: MapState, u: Tensor) -> SE3:
+    """RANSAC of the dominant plane, and the SE3 that puts it at z=0
+    (CalcPlaneAligner). Each row of the (n_ransacs, P) uniforms ``u`` ranks
+    the valid points; a trial's 3 highest-ranked points span its plane
+    (ties to the lower index, as ``lax.top_k``). The best trial's inliers
+    (within 0.05) give the normal: the smallest eigenvector of their
+    covariance, facing -z. Fewer than 10 valid points give the identity."""
+    valid = m.point_valid
+    pts = m.point_pos
+    dev = pts.device
+    n = torch.sum(valid.to(torch.int32))
+
+    r = torch.where(valid[None], u, -1.0)
+    idx3 = torch.sort(r, dim=-1, descending=True, stable=True).indices[:, :3]
+    pa, pb, pc = pts[idx3[:, 0]], pts[idx3[:, 1]], pts[idx3[:, 2]]
+    mean3 = (pa + pb + pc) / 3.0
+    nrm = torch.linalg.cross(pc - pa, pb - pa, dim=-1)
+    nlen = torch.linalg.vector_norm(nrm, dim=-1, keepdim=True)
+    nrm = nrm / torch.where(nlen < 1e-12, 1.0, nlen)
+
+    diff = pts[None] - mean3[:, None]                       # (T, P, 3)
+    ndist = torch.clamp(torch.abs(torch.sum(diff * nrm[:, None], dim=-1)),
+                        max=0.05)
+    dist_sq = torch.sum(diff * diff, dim=-1)
+    scores = torch.sum(torch.where(valid[None] & (dist_sq > 0), ndist, 0.0),
+                       dim=-1)
+    scores = torch.where(nlen[:, 0] < 1e-12, float("inf"), scores)
+    best = torch.argmin(scores).reshape(1)  # the first minimum, as jnp
+    bmean, bnorm = mean3[best][0], nrm[best][0]
+
+    diffb = pts - bmean
+    inl = (valid & (torch.abs(diffb @ bnorm) < 0.05)
+           & (torch.sum(diffb * diffb, dim=-1) > 0))
+    wn = torch.clamp(torch.sum(inl.to(torch.float32)), min=1.0)
+    mean_in = torch.sum(torch.where(inl[:, None], pts, 0.0), dim=0) / wn
+    d = (pts - mean_in) * inl[:, None]
+    normal = geometry.smallest_eigvec(d.T @ d)
+    normal = torch.where(normal[2] > 0, -normal, normal)
+
+    # Gram-Schmidt rotation with the normal as its z row.
+    eye = torch.eye(3, dtype=torch.float32, device=dev)
+    r0 = eye[0] - normal * normal[0]
+    r0 = r0 / torch.clamp(torch.linalg.vector_norm(r0), min=1e-12)
+    r1 = torch.linalg.cross(normal, r0, dim=-1)
+    R = torch.stack([r0, r1, normal])
+    t = -(R @ mean_in)
+    few = n < 10
+    return SE3(torch.where(few, eye, R), torch.where(few, 0.0, t))
+
+
+def apply_global_transform(m: MapState, T: SE3) -> MapState:
+    """ApplyGlobalTransformationToMap: keyframe poses compose with T^-1,
+    points move by T."""
+    Tinv = se3lib.inv(T)
+    new = dataclasses.replace(
+        m, kf_R=m.kf_R @ Tinv.R,
+        kf_t=(m.kf_R @ Tinv.t[:, None])[..., 0] + m.kf_t,
+        point_pos=m.point_pos @ T.R.T + T.t)
+    return ms.refresh_pixel_vectors(new)
+
+
 # ---------------------------------------------------------------------------
-# Host orchestrator: the BA half
+# Host orchestrator
 # ---------------------------------------------------------------------------
 
 class MapMaker:
-    """The mapping side's bundle adjustment and bad-point GC (the BA half
-    of the JAX package's MapMaker). A keyframe waiting in ``kf_queue``
-    aborts a BA run between chunks, as the reference's abort flag does;
-    the keyframe queue's integration and the ``step()`` scheduler that
-    fill it are not ported yet.
+    """The mapping side's bundle adjustment, bad-point GC, epipolar
+    expansion and plane alignment: what stereo init and BA use of the JAX
+    package's MapMaker. A keyframe waiting in ``kf_queue`` aborts a BA run
+    between chunks, as the reference's abort flag does; the keyframe
+    queue's integration and the ``step()`` scheduler that fill it are not
+    ported yet.
 
     One device only: the JAX MapMaker's ``mesh`` (point-sharded global BA)
     has no counterpart here, so the constructor takes none.
@@ -659,12 +734,16 @@ class MapMaker:
     CPU and latency mode on the card. A chunk reads its flags on the host
     as it runs (``bundle.lm_chunk``), so it has ended when its dispatch
     returns, and a poll needs no readiness check.
+
+    ``seed`` seeds ``generator``, a ``torch.Generator`` on the map's
+    device, which draws the plane aligner's uniforms when the caller gives
+    none (the JAX MapMaker splits a PRNG key made from the same seed).
     """
 
     def __init__(self, m: MapState, cam: atan.Camera, image_size,
                  cfg: MapMakerConfig = MapMakerConfig(),
                  ba_cfg: BundleConfig = BundleConfig(),
-                 max_ba_meas: int | None = None,
+                 max_ba_meas: int | None = None, seed: int = 0,
                  deterministic: bool | None = None):
         self.map = m
         self.cam = cam
@@ -679,8 +758,15 @@ class MapMaker:
         #: per-keyframe budget; past it extraction prioritizes and warns.
         self.max_ba_meas = (min(K * MAX_MEAS_PER_KF, K * P)
                             if max_ba_meas is None else max_ba_meas)
-        self.failure_mask = torch.zeros(K, P, dtype=torch.bool,
-                                        device=m.meas_valid.device)
+        dev = m.meas_valid.device
+        self.failure_mask = torch.zeros(K, P, dtype=torch.bool, device=dev)
+        #: Points added by epipolar expansion, not yet re-found elsewhere.
+        self.new_point_mask = torch.zeros(P, dtype=torch.bool, device=dev)
+        #: Set when an expansion added points; the scheduler (not ported
+        #: yet) reads it to start their re-find.
+        self._new_points_pending = False
+        self.generator = torch.Generator(device=dev)
+        self.generator.manual_seed(seed)
         # BA size tiers (power-of-two caps, see _ba_caps); the floors only
         # ratchet up (overflow escalation).
         self._tier_c_floor = 4
@@ -690,8 +776,14 @@ class MapMaker:
         self._n_points_hint = 0
         #: True measurement count of the last BA extract.
         self._last_n_sel = 0
-        #: Host-side keyframe count (one read here).
+        #: Host-side keyframe count and mirror of ``map.good`` (read here
+        #: once; stereo init sets both). The scheduler (not ported yet)
+        #: reads ``good_host`` to skip work on a map that is not good.
         self._n_kfs_host = int(torch.sum(m.kf_valid.to(torch.int32)))
+        self.good_host = bool(m.good)
+        #: Keyframe distances are measured in units of this (stereo init
+        #: sets it to wiggle_scale / scene depth).
+        self.wiggle_depth_norm = 1.0
         #: Keyframes waiting for integration; a non-empty queue aborts BA.
         self.kf_queue: list = []
         #: In-flight BA job (see _ba_start/_ba_poll).
@@ -870,6 +962,31 @@ class MapMaker:
             self._ba_start(adjust, fixed, pts, True)
         else:
             self.bundle_adjust(adjust, fixed, pts, True)
+
+    def add_some_map_points(self, src_kf: int, level: int) -> int:
+        """One epipolar expansion of keyframe ``src_kf`` at ``level``
+        against its closest keyframe (AddSomeMapPoints). Returns the number
+        of points added (one host read, as in the JAX package)."""
+        self.map, n, self.new_point_mask = epipolar_job(
+            self.map, src_kf, self.new_point_mask, level, self.cam,
+            self.image_size, self.cfg.wiggle_scale,
+            self.cfg.thin_candidates_radius)
+        n = int(n)
+        if n > 0:
+            self._new_points_pending = True
+        return n
+
+    def plane_align(self, u: Tensor | None = None):
+        """Move the map so its dominant plane is z=0 (CalcPlaneAligner and
+        ApplyGlobalTransformationToMap). ``u``: the (plane_aligner_ransacs,
+        P) uniforms, drawn from ``generator`` when not given."""
+        if u is None:
+            u = torch.rand((self.cfg.plane_aligner_ransacs,
+                            self.map.point_pos.shape[0]),
+                           generator=self.generator,
+                           device=self.map.point_pos.device)
+        self.map = apply_global_transform(self.map,
+                                          plane_aligner(self.map, u))
 
     def handle_bad_points(self):
         """Bad-point GC, run only after the map changed (``mark_dirty``)."""

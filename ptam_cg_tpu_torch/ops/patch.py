@@ -179,9 +179,11 @@ def _integral_window_sums(win: Tensor, patch_size: int) -> Tensor:
 
 def ssd_search(atlas: Tensor, corner_mask: Tensor, templates: Tensor,
                centers: Tensor, radius: Tensor, bounds: Tensor, *,
-               r_win: int, max_ssd: float,
+               r_win: int, max_ssd: float, zero_mean: bool = True,
                patch_size: int = PATCH_SIZE):
-    """Batched windowed ZMSSD search (ZMSSDAtPoint's formula).
+    """Batched windowed ZMSSD search (ZMSSDAtPoint's formula), or with
+    ``zero_mean`` False the plain SSD (the MiniPatch search of trail
+    tracking).
 
     atlas (Ha, Wa) f32; corner_mask (Ha, Wa) bool; templates (N, P, P);
     centers (N, 2) predicted atlas positions; radius (N,) search radius in
@@ -204,19 +206,20 @@ def ssd_search(atlas: Tensor, corner_mask: Tensor, templates: Tensor,
     win, cmask = gather_window_pair(atlas, corner_mask, origin_y, origin_x,
                                     D, ph, M)
 
-    SA_t = torch.sum(templates, dim=(-2, -1))
     SSQ_t = torch.sum(templates * templates, dim=(-2, -1))
-    S_img = _integral_window_sums(win, P)
     SSQ_img = _integral_window_sums(win * win, P)
     cross = torch.zeros((N, M, M), dtype=win.dtype, device=dev)
     for dy in range(P):
         for dx in range(P):
             cross = cross + (templates[:, dy, dx][:, None, None]
                              * win[:, dy: dy + M, dx: dx + M])
-    npix = float(P * P)
-    SA = SA_t[:, None, None]
-    ssd = ((2.0 * SA * S_img - SA ** 2 - S_img * S_img) / npix
-           + SSQ_img + SSQ_t[:, None, None] - 2.0 * cross)
+    if zero_mean:
+        SA = torch.sum(templates, dim=(-2, -1))[:, None, None]
+        S_img = _integral_window_sums(win, P)
+        ssd = ((2.0 * SA * S_img - SA ** 2 - S_img * S_img) / float(P * P)
+               + SSQ_img + SSQ_t[:, None, None] - 2.0 * cross)
+    else:
+        ssd = SSQ_img + SSQ_t[:, None, None] - 2.0 * cross
 
     g = torch.arange(M, device=dev)
     pos_x = origin_x[:, None, None] + g[None, None, :] + ph     # (N, 1, M)

@@ -1,12 +1,16 @@
 """Small geometry solvers (port of ``ptam_cg_tpu.utils.geometry``):
-``spd_solve`` and DLT ``triangulate``. All in float32.
+``spd_solve``, DLT ``triangulate``, and the small symmetric eigen-solver
+``sym_eigh`` with what is built on it (``smallest_eigvec``, ``svd3``,
+``det3``). All in float32.
 
 The DLT null space is the eigenvector of AᵀA for its smallest eigenvalue,
 as in the JAX package, but from a cyclic Jacobi eigen-solve of a fixed
 number of sweeps written in tensor ops, not ``torch.linalg.eigh``: on a
 CUDA device that batches cuSOLVER's Jacobi solver, which raises when it
 misses its tolerance (it did for keyframes with no baseline between
-them), and checks for that with a host sync.
+them), and checks for that with a host sync. ``torch.linalg.svd`` checks
+for errors with a host sync too, so the 3x3 SVD is built on the same
+solver.
 """
 
 from __future__ import annotations
@@ -50,19 +54,41 @@ def spd_solve(A: Tensor, b: Tensor) -> Tensor:
 
 
 #: Cyclic Jacobi on 4x4: each round rotates two disjoint pairs, three
-#: rounds visit all six pairs once. Convergence is quadratic: four sweeps
-#: reach float32 rounding on random matrices and on the DLT systems of
-#: the keyframe path (a fifth changes no result; three do not suffice).
+#: rounds visit all six pairs once.
 _JACOBI_ROUNDS = ((0, 1, 2, 3), (0, 2, 1, 3), (0, 3, 1, 2))
-JACOBI_SWEEPS = 4
+#: Sweeps of ``sym_eigh`` by size. Convergence is quadratic: four sweeps
+#: reach float32 rounding on the 4x4 DLT systems of ``triangulate`` and on
+#: random matrices (a fifth changes no result; three do not suffice);
+#: for the 3x3 covariances and SVDs and the 9x9 DLT normal matrices of the
+#: homography, one more sweep changes no result
+#: (tests/test_torch_homography.py checks it).
+EIGH_SWEEPS = {3: 5, 4: 4, 9: 9}
 
 
-def _rotation_basis(p, q, r, s, device) -> Tensor:
-    """(4, 4, 4) matrices B such that the Jacobi rotation of the pairs
-    (p, q) and (r, s) is I + sum_k coef_k B_k, coef = (c1 - 1, s1, c2 - 1,
-    s2)."""
-    B = torch.zeros((4, 4, 4), dtype=torch.float32, device=device)
-    for k, (i, j) in enumerate(((p, q), (r, s))):
+def _round_robin(n: int):
+    """Rounds of disjoint index pairs that visit every pair of 0..n-1 once
+    (the circle method): n-1 rounds of n/2 pairs, or for odd n, n rounds
+    of (n-1)/2 pairs with one index idle."""
+    if n == 4:
+        return tuple(((p, q), (r, s)) for p, q, r, s in _JACOBI_ROUNDS)
+    m = n + n % 2
+    idx = list(range(m))
+    rounds = []
+    for _ in range(m - 1):
+        pairs = [(min(idx[i], idx[m - 1 - i]), max(idx[i], idx[m - 1 - i]))
+                 for i in range(m // 2)]
+        rounds.append(tuple(pq for pq in pairs if pq[1] < n))
+        idx = [idx[0], idx[-1]] + idx[1:-1]
+    return tuple(rounds)
+
+
+def _rotation_basis(pairs, n, device) -> Tensor:
+    """(2k, n, n) matrices B such that the Jacobi rotation of the k
+    disjoint ``pairs`` is I + sum_j coef_j B_j, coef = (c1 - 1, s1, c2 - 1,
+    s2, ...)."""
+    B = torch.zeros((2 * len(pairs), n, n), dtype=torch.float32,
+                    device=device)
+    for k, (i, j) in enumerate(pairs):
         B[2 * k, i, i] = B[2 * k, j, j] = 1.0
         B[2 * k + 1, i, j] = 1.0
         B[2 * k + 1, j, i] = -1.0
@@ -70,26 +96,34 @@ def _rotation_basis(p, q, r, s, device) -> Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _jacobi_rounds(device):
-    """Per round: the (rows, cols) that gather (app, aqq, apq) of both
-    pairs, and the rotation basis. Made once per device: a host-to-device
-    copy waits for the device."""
-    return [(torch.tensor([p, r, q, s, p, r], device=device),
-             torch.tensor([p, r, q, s, q, s], device=device),
-             _rotation_basis(p, q, r, s, device))
-            for p, q, r, s in _JACOBI_ROUNDS]
+def _jacobi_rounds(n: int, device):
+    """Per round: the (rows, cols) that gather (app, aqq, apq) of its
+    pairs, and the rotation basis. Made once per size and device: a
+    host-to-device copy waits for the device."""
+    out = []
+    for pairs in _round_robin(n):
+        ps = [p for p, _ in pairs]
+        qs = [q for _, q in pairs]
+        out.append((torch.tensor(ps + qs + ps, device=device),
+                    torch.tensor(ps + qs + qs, device=device),
+                    _rotation_basis(pairs, n, device)))
+    return out
 
 
-def sym4_eigh(M: Tensor):
-    """Eigen-decomposition of symmetric (..., 4, 4) float32 matrices by
-    cyclic Jacobi (Golub and Van Loan, Alg. 8.4.3). Returns (eigenvalues
-    (..., 4), eigenvectors as columns (..., 4, 4)), in no set order."""
-    eye = torch.eye(4, dtype=M.dtype, device=M.device)
+def sym_eigh(M: Tensor):
+    """Eigen-decomposition of symmetric (..., n, n) float32 matrices by
+    cyclic Jacobi over rounds of disjoint pairs (Golub and Van Loan, Alg.
+    8.4.3), ``EIGH_SWEEPS[n]`` sweeps: no data-dependent exit, so nothing
+    is read on the host and nothing can raise. Returns (eigenvalues
+    (..., n), eigenvectors as columns (..., n, n)), in no set order."""
+    n = M.shape[-1]
+    eye = torch.eye(n, dtype=M.dtype, device=M.device)
     V = eye.expand(M.shape).clone()
-    for _ in range(JACOBI_SWEEPS):
-        for rows, cols, basis in _jacobi_rounds(M.device):
+    for _ in range(EIGH_SWEEPS[n]):
+        for rows, cols, basis in _jacobi_rounds(n, M.device):
+            k = basis.shape[0] // 2
             v = M[..., rows, cols]
-            app, aqq, apq = v[..., 0:2], v[..., 2:4], v[..., 4:6]
+            app, aqq, apq = v[..., :k], v[..., k:2 * k], v[..., 2 * k:]
             zero = apq == 0.0
             tau = (aqq - app) / (2.0 * torch.where(zero, 1.0, apq))
             sgn = torch.where(tau >= 0.0, 1.0, -1.0)
@@ -103,10 +137,68 @@ def sym4_eigh(M: Tensor):
     return torch.diagonal(M, dim1=-2, dim2=-1), V
 
 
+def smallest_eigvec(M: Tensor) -> Tensor:
+    """Eigenvector (..., n) of symmetric (..., n, n) for its smallest
+    eigenvalue (the first one on a tie), its largest-magnitude entry made
+    positive."""
+    vals, vecs = sym_eigh(M)
+    k = torch.argmin(vals, dim=-1)
+    v = torch.gather(vecs, -1, k[..., None, None].expand(
+        *vecs.shape[:-1], 1))[..., 0]
+    return _canonical_sign(v)
+
+
+def _canonical_sign(v: Tensor) -> Tensor:
+    """Vectors (..., n) with the sign that makes the entry of largest
+    magnitude (the first one on a tie) positive."""
+    i = torch.argmax(torch.abs(v), dim=-1, keepdim=True)
+    return torch.where(torch.gather(v, -1, i) < 0.0, -v, v)
+
+
+def det3(m: Tensor) -> Tensor:
+    """Closed-form determinant of (..., 3, 3) matrices."""
+    return (m[..., 0, 0] * (m[..., 1, 1] * m[..., 2, 2]
+                            - m[..., 1, 2] * m[..., 2, 1])
+            - m[..., 0, 1] * (m[..., 1, 0] * m[..., 2, 2]
+                              - m[..., 1, 2] * m[..., 2, 0])
+            + m[..., 0, 2] * (m[..., 1, 0] * m[..., 2, 1]
+                              - m[..., 1, 1] * m[..., 2, 0]))
+
+
+def svd3(H: Tensor):
+    """SVD of (..., 3, 3) float32 matrices: (U, singular values in
+    descending order, V), with H = U diag(s) V^T. V comes from the
+    eigenvectors of H^T H, each column's largest-magnitude entry made
+    positive, so the card and the CPU give the same signs; U's first two
+    columns are H v / s (the second made orthogonal to the first), its
+    third their cross product, signed as H v3. Nothing syncs or raises
+    (``torch.linalg.svd`` checks for errors with a host read)."""
+    vals, vecs = sym_eigh(H.transpose(-1, -2) @ H)
+    order = torch.sort(vals, dim=-1, descending=True, stable=True).indices
+    vals = torch.gather(vals, -1, order)
+    V = torch.gather(vecs, -1, order[..., None, :].expand(vecs.shape))
+    V = _canonical_sign(V.transpose(-1, -2)).transpose(-1, -2)
+    s = torch.sqrt(torch.clamp(vals, min=0.0))
+    HV = H @ V
+
+    def unit(x):
+        return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1,
+                                                        keepdim=True),
+                               min=1e-30)
+
+    u1 = unit(HV[..., 0])
+    u2 = HV[..., 1]
+    u2 = unit(u2 - u1 * torch.sum(u1 * u2, dim=-1, keepdim=True))
+    u3 = torch.linalg.cross(u1, u2, dim=-1)
+    u3 = torch.where(torch.sum(u3 * HV[..., 2], dim=-1, keepdim=True) < 0.0,
+                     -u3, u3)
+    return torch.stack([u1, u2, u3], dim=-1), s, V
+
+
 def _smallest_right_singular(A: Tensor) -> Tensor:
     """Right-singular vector of (..., m, 4) for its smallest singular
     value: the eigenvector of AᵀA with the smallest eigenvalue."""
-    vals, vecs = sym4_eigh(A.transpose(-1, -2) @ A)
+    vals, vecs = sym_eigh(A.transpose(-1, -2) @ A)
     k = torch.argmin(vals, dim=-1)
     return torch.gather(vecs, -1, k[..., None, None].expand(
         *vecs.shape[:-1], 1))[..., 0]

@@ -1,4 +1,5 @@
-"""Compare two tracking results, or two keyframe integrations.
+"""Compare two tracking results, two keyframe integrations, or two runs
+of trail tracking.
 
 Two runs on the same inputs can differ where float noise decides: the
 sums of the ZMSSD search and the subpixel solve are taken in another
@@ -172,3 +173,34 @@ def integration_differences(ref: dict, port: dict, before_valid, slot: int,
         out.append(dict(level=lev, candidate=key[1:], kind=kind,
                         reason=reason, thin_dist=thin, **diag_c))
     return out, counts
+
+
+def trail_differences(a, b, diag_a: dict, diag_b: dict,
+                      max_ssd: float) -> list:
+    """Trails on which two runs of ``trail_advance`` from the same trails
+    differ (good in one only, or good in both at other positions), each
+    with ``reason``: a near-tie of either run's forward or backward
+    search, an SSD at ``max_ssd``, or a return distance at the married
+    match's limit of 2 px^2 (within float noise); None otherwise."""
+    def np_(x):
+        return x.detach().cpu().numpy()
+
+    va, vb = np_(a.valid), np_(b.valid)
+    pa, pb = np_(a.cur_pos), np_(b.cur_pos)
+    diags = [{k: np_(v) for k, v in d.items()} for d in (diag_a, diag_b)]
+    out = []
+    for i in np.nonzero((va != vb) | (va & vb & np.any(pa != pb, axis=-1)))[0]:
+        reason = None
+        for d in diags:
+            for side in ("fwd", "bwd"):
+                ssd = float(d[f"{side}_ssd"][i])
+                tol = SSD_TIE_ABS + SSD_TIE_REL * abs(ssd)
+                if float(d[f"{side}_margin"][i]) <= tol:
+                    reason = reason or f"{side} SSD near-tie"
+                elif abs(ssd - max_ssd) <= tol:
+                    reason = reason or f"{side} SSD at the acceptance limit"
+            if abs(float(d["ret"][i]) - 2.0) <= 1e-4:
+                reason = reason or "return distance at the limit"
+        out.append(dict(trail=int(i), valid=(bool(va[i]), bool(vb[i])),
+                        pos=(pa[i].tolist(), pb[i].tolist()), reason=reason))
+    return out

@@ -317,3 +317,170 @@ def test_lean_fallback_non_divisible_is_dense():
     sl = tbundle.lm_step(tbundle.init_lm(prob, LEAN), cam, LEAN)
     assert torch.equal(sd.problem.pt_pos, sl.problem.pt_pos)
     assert torch.equal(sd.problem.cam_t, sl.problem.cam_t)
+
+
+# ---------------------------------------------------------------------------
+# The Schur system near lambda's floor (is it still positive definite?)
+# ---------------------------------------------------------------------------
+
+LAMBDA_FLOOR = 1e-10     # lm_step's lower clamp on lambda
+
+
+def _schur_blocks(pkg, state, cam, kind=jmest.TUKEY):
+    """The (C, 6, C, 6) Schur system of the free cameras at the state's
+    lambda, from the package's own accumulators (dense path)."""
+    bundle, mest, xp = ((jbundle, jmest, jnp) if pkg == "jax"
+                        else (tbundle, tmest, torch))
+    prob = state.problem
+    C, P = prob.cam_R.shape[0], prob.pt_pos.shape[0]
+    _, _, _, err_sq, bad_proj = bundle._project_meas(
+        prob.cam_R, prob.cam_t, prob.pt_pos, prob, cam)
+    active = prob.meas_valid & ~prob.meas_bad
+    sigma_sq = mest.find_sigma_squared(err_sq, active & ~bad_proj, kind,
+                                       min_sigma=CFG.min_sigma)
+    if pkg == "jax":
+        U, _, V9, _, W2d, *_ = bundle._accumulators(prob, cam, sigma_sq, CFG,
+                                                    kind)
+    else:
+        U, _, V9, _, W, *_ = bundle._accumulators(prob, state.layout, cam,
+                                                  sigma_sq, CFG, kind)
+        W2d = W[0, :18 * C]
+    Vi = bundle._vinv_cols(V9, state.lam)
+    WV = bundle._wv_product(W2d, Vi, C * 6, P)
+    S_off = (WV @ W2d.reshape(C * 6, 3 * P).T).reshape(C, 6, C, 6)
+    Ustar = U * (xp.ones((6, 6)) + state.lam * xp.eye(6))
+    return -S_off + xp.einsum("jab,jk->jakb", Ustar, xp.eye(C))
+
+
+def _schur(pkg, state, cam):
+    """The camera Schur system S that ``lm_step`` factors (the fixed
+    cameras' blocks the identity), as float64 numpy (6C, 6C)."""
+    if pkg == "jax":
+        with jax.default_matmul_precision("float32"):
+            S = jax.jit(lambda s, c: _schur_blocks("jax", s, c))(state, cam)
+    else:
+        S = _schur_blocks("port", state, cam)
+    prob = state.problem
+    C = prob.cam_R.shape[0]
+    free = np.asarray(prob.cam_valid & ~prob.cam_fixed, np.float64)
+    S = np.asarray(S, np.float64) * (free[:, None, None, None]
+                                     * free[None, None, :, None])
+    S = S + np.einsum("jab,jk->jakb", np.broadcast_to(np.eye(6), (C, 6, 6)),
+                      np.eye(C)) * (1.0 - free)[:, None, None, None]
+    return S.reshape(C * 6, C * 6)
+
+
+def _driven_to_the_floor(tprob, tcam):
+    """The port's LM run from ``tprob`` until lambda reaches its floor (at
+    most 15 steps), then lambda set to the floor: (port state, JAX state)
+    of the same problem."""
+    state = tbundle.init_lm(tprob)
+    for _ in range(15):
+        if float(state.lam) <= LAMBDA_FLOOR:
+            break
+        state = tbundle.lm_step(state, tcam)
+    prob = dataclasses.replace(state.problem)
+    tstate = dataclasses.replace(tbundle.init_lm(prob),
+                                 lam=torch.tensor(LAMBDA_FLOOR))
+    jprob = jbundle.BundleProblem(**{
+        f.name: jnp.asarray(getattr(prob, f.name).numpy())
+        for f in dataclasses.fields(prob)})
+    jstate = jbundle.init_lm(jprob)._replace(lam=jnp.float32(LAMBDA_FLOOR))
+    return tstate, jstate
+
+
+def _init_after_triangulation():
+    """tests/test_torch_initializer.py's init (JAX-rendered frames of the
+    e2e scene, 256 trails, frames 0 and 6), stopped before its first BA:
+    the map then has two keyframes, keyframe 0 fixed, and a free scale."""
+    from ptam_cg_tpu.io import synth as jsynth
+    from ptam_cg_tpu_torch.models import initializer as tinit
+    from ptam_cg_tpu_torch.models import keyframe as tkf
+    from ptam_cg_tpu_torch.models import map_state as tms
+    from ptam_cg_tpu_torch.models import mapmaker as tmapmaker
+    size = (320, 240)
+    seq = jsynth.SyntheticSequence(
+        (1.0803, 1.43987, 0.519983, 0.548655, 0.244943), image_size=size,
+        n_frames=26, seed=5, height=1.5, radius=0.35, sweep=1.3)
+    ff = [tkf.build_frame(torch.from_numpy(np.array(seq.frame(i))),
+                          candidate_min_score=70.0) for i in range(7)]
+    trails = tinit.trail_start(ff[0], size, 256)
+    for i in range(1, 7):
+        trails, _ = tinit.trail_advance(trails, ff[i - 1], ff[i], size)
+    cam = fj.camera_from_numpy(fj.as_numpy_tree(seq.cam), "cpu")
+    maker = tmapmaker.MapMaker(
+        tms.empty_map(size, max_points=1024, max_kfs=8, device="cpu"), cam,
+        size)
+
+    class Stop(Exception):
+        pass
+
+    def stop(*_, **__):
+        raise Stop
+
+    maker.bundle_adjust_all = stop
+    u = torch.rand((300, 1024), generator=torch.Generator().manual_seed(0))
+    with pytest.raises(Stop):
+        tinit.init_from_stereo(maker, ff[0], ff[6], trails, u)
+    return maker.map, cam, seq.cam
+
+
+@pytest.mark.parametrize("scene", ["ba_map, keyframes 0 and 1 fixed",
+                                   "init after triangulation"])
+def test_schur_at_the_lambda_floor_matches_jax(scene):
+    """Both packages' ``lm_step`` at lambda's floor on the same converged
+    problem: the same ``failed`` flag; and the smallest eigenvalue of the
+    Schur system each factors has the same sign unless its size is within
+    the spectral norm of the difference of the two float32 systems (then
+    the sign is float32 noise). A package's own float32 Cholesky of its
+    system (plus lm_step's 1e-8 I) fails exactly where that system is
+    indefinite, and then its ``lm_step`` raises lambda and tries again.
+    On the init map at least one package's system is indefinite: the
+    reproduction of ROADMAP.md §3's item. Both eigenvalues are printed:
+    ROADMAP.md §3 records them."""
+    from ptam_cg_tpu_torch.models import mapmaker as tmapmaker
+    if scene.startswith("ba_map"):
+        m, cam = tsynth.ba_map(n_kfs=10, max_kfs=16, n_pts=256, seed=3,
+                               image_size=(64, 64), device="cpu")
+        m.kf_fixed[:] = False
+        m.kf_fixed[[0, 1]] = True
+        jcam = jbundle.atan.make_camera(*tsynth.BA_CAMERA)
+    else:
+        m, cam, jcam = _init_after_triangulation()
+    valid = m.kf_valid
+    tprob, *_ = tmapmaker.extract_bundle(
+        m, valid & ~m.kf_fixed, valid & m.kf_fixed, m.point_valid,
+        int(m.meas_valid.sum()))
+    tstate, jstate = _driven_to_the_floor(tprob, cam)
+    S = {"jax": _schur("jax", jstate, jcam), "port": _schur("port", tstate,
+                                                             cam)}
+    fixed_one = np.abs(np.diag(S["port"]) - 1.0) < 1e-12
+    low = {}
+    for pkg, Sp in S.items():
+        w = np.linalg.eigvalsh(Sp[~fixed_one][:, ~fixed_one])
+        low[pkg] = (w.min(), w.max())
+    noise = np.linalg.norm(S["jax"] - S["port"], 2)
+    jout = jbundle._cached_lm_step(CFG, jmest.TUKEY)(jstate, jcam)
+    tout = tbundle.lm_step(tstate, cam)
+    print(f"{scene}: Schur smallest / largest eigenvalue at lambda "
+          f"{LAMBDA_FLOOR}: JAX {low['jax'][0]:.6g} / {low['jax'][1]:.6g}, "
+          f"port {low['port'][0]:.6g} / {low['port'][1]:.6g}; |S_jax - "
+          f"S_port| {noise:.6g}; lambda tries JAX {int(jout.iters)}, port "
+          f"{int(tout.iters)}; failed JAX {bool(jout.failed)}, port "
+          f"{bool(tout.failed)}")
+    assert bool(jout.failed) == bool(tout.failed)
+    lj, lp = low["jax"][0], low["port"][0]
+    assert np.sign(lj) == np.sign(lp) or max(abs(lj), abs(lp)) <= noise
+    eye = np.eye(S["jax"].shape[0], dtype=np.float32)
+    chol_fails = {
+        "jax": not bool(jnp.all(jnp.isfinite(jax.scipy.linalg.cho_factor(
+            jnp.asarray(S["jax"], jnp.float32) + 1e-8 * eye,
+            lower=True)[0]))),
+        "port": int(torch.linalg.cholesky_ex(torch.from_numpy(
+            S["port"].astype(np.float32) + 1e-8 * eye))[1]) != 0}
+    tries = {"jax": int(jout.iters), "port": int(tout.iters)}
+    for pkg in S:
+        assert chol_fails[pkg] == (low[pkg][0] < 0.0), pkg
+        assert tries[pkg] >= 1 + chol_fails[pkg], pkg
+    if scene.startswith("init"):
+        assert min(lj, lp) < 0.0

@@ -63,7 +63,9 @@ _JAX_PACKAGE = re.compile(
 
 #: Modules whose scan the tests below must include (the port's slices).
 SCANNED = ("models/tracker.py", "models/keyframe.py", "models/mapmaker.py",
-           "models/bundle.py", "utils/mest.py", "io/synth.py",
+           "models/bundle.py", "models/homography.py",
+           "models/initializer.py", "models/relocalizer.py",
+           "utils/geometry.py", "utils/mest.py", "io/synth.py",
            "io/from_jax.py")
 
 
@@ -95,6 +97,8 @@ def _entry_points():
             from_jax.frame_features_from_numpy,
             from_jax.map_state_from_numpy, from_jax.tracker_state_from_numpy,
             from_jax.bundle_problem_from_numpy, from_jax.lm_state_from_numpy,
+            from_jax.trail_state_from_numpy, from_jax.matches_from_numpy,
+            from_jax.homography_result_from_numpy,
             synth.ba_problem, synth.ba_map]
 
 

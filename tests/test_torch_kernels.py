@@ -37,8 +37,9 @@ torch.set_num_threads(2)
 #: The window sides on the tracking path: search windows 40 (coarse) and
 #: 30 (fine), corner-mask windows 33 and 23, template windows 28; on the
 #: keyframe path: epipolar patches 8, re-find corner-mask windows 9,
-#: sub-pixel windows 15 and re-find search windows 16.
-PATH_WINDOWS = (8, 9, 15, 16, 23, 28, 30, 33, 40)
+#: sub-pixel windows 15 and re-find search windows 16; on the bootstrap
+#: path: trail search windows 29 (MiniPatch cuts 9, template cuts 8).
+PATH_WINDOWS = (8, 9, 15, 16, 23, 28, 29, 30, 33, 40)
 REF_PARAMS = (1.0803, 1.43987, 0.519983, 0.548655, 0.244943)
 THRESHOLDS = FrontendConfig().fast_thresholds
 

@@ -164,7 +164,7 @@ def test_sym4_eigh_solves_degenerate_matrices():
     A[:20, :, 3] = 0.0
     A[20:40, 2] = A[20:40, 0]
     M = np.einsum("nmi,nmj->nij", A, A)
-    vals, V = tgeometry.sym4_eigh(T(M))
+    vals, V = tgeometry.sym_eigh(T(M))
     ref = np.linalg.eigvalsh(M.astype(np.float64))
     scale = np.abs(ref).max(-1, keepdims=True)
     assert np.abs(np.sort(vals.numpy(), -1) - ref).max() <= 1e-6 * scale.max()
