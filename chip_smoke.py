@@ -172,6 +172,33 @@ LOST_FRAME = 7
 INIT_POSE_TOL = 7e-6
 INIT_PT_P99_TOL = 6e-6
 INIT_WIGGLE_RTOL = 5e-7
+# Phase 11: bench_engine.py's scene and engine (its 240 frames, uint8 on
+# the host), and the reloc test's orbit for 11d.
+ENG_SEQ = dict(n_frames=240, seed=7, height=1.5, radius=0.35, sweep=1.3)
+ENG_CAND_MIN = 100.0
+ENG_MAP = dict(max_points=4096, max_kfs=16, auto_init_frames=6, seed=0)
+RELOC_SEQ = dict(n_frames=16, seed=5, height=1.5, radius=0.35, sweep=1.3)
+# 11e: tests/test_slam_e2e.py's orbit at its own pace (1.3 rad over 25
+# frame steps) run on to 76 frames, past three keyframes: unlike
+# bench_engine.py's slow orbit, its keyframes' epipolar search adds points.
+GROW_SEQ = dict(n_frames=76, seed=5, height=1.5, radius=0.35, sweep=3.9)
+# 11e: card against CPU over all 76 frames, poses as in 11b. Its 8
+# global BA runs turn their accept counts on float noise (phase 8), so a
+# GC pass may land a frame apart and the poses drift further than 11b's:
+# ~3x the larger of the two spreads measured on one H100 at 700 W
+# (PERF.md §6): card against CPU (|dR| 2.67e-5, |dt| 1.23e-4), and the
+# CPU port on 1 against 8 threads (2.65e-5, 1.22e-4).
+GROW_ROT_TOL = 8e-5
+GROW_T_TOL = 4e-4
+ENG_PROFILE = 20     # 11c: the last frames, under the profiler
+ENG_SYNC = 10        # 11c: the frames before them, under sync debug mode
+ENG_CPU1 = 16        # 11b: frames the CPU runs on one thread (the spread)
+# 11b: card against CPU, each frame's rotation and translation over |t|
+# on the init frame (the scale is free): ~3x the larger of the measured
+# card-vs-CPU and 1-vs-8-thread spreads (|dR| 2.55e-5 and 9.80e-6, |dt|
+# 1.51e-6 and 5.03e-7 on one H100, PERF.md §6).
+ENG_ROT_TOL = 8e-5
+ENG_T_TOL = 5e-6
 
 
 def fail(msg):
@@ -203,6 +230,17 @@ def time_ms(fn, torch, reps=REPS, setup=None):
     return statistics.median(times)
 
 
+def device_rows(prof):
+    """(name, self device us, count) of a profile's kernel rows: only rows
+    of the card's own events, since a host row that launched a kernel
+    carries the same device time."""
+    from torch.autograd import DeviceType
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            yield e.key, e.self_cuda_time_total if t is None else t, e.count
+
+
 def device_us(fn, torch, n=20, match=None, setup=None, tries=3):
     """Device time (us) and kernels per call from torch.profiler over
     ``n`` calls, counting only kernels whose name holds ``match`` if
@@ -221,13 +259,10 @@ def device_us(fn, torch, n=20, match=None, setup=None, tries=3):
                 fn(a)
             torch.cuda.synchronize()
         total, count = 0.0, 0
-        for e in prof.key_averages():
-            t = getattr(e, "self_device_time_total", None)
-            if t is None:
-                t = e.self_cuda_time_total
-            if t > 0 and (match is None or match in e.key):
+        for key, t, calls in device_rows(prof):
+            if t > 0 and (match is None or match in key):
                 total += t
-                count += e.count
+                count += calls
         if count:
             return total / n, count / n
     return None, 0
@@ -987,6 +1022,474 @@ def bootstrap(torch, dev, card, kernels, reset_counts, counts):
 
 
 
+class HostDraws:
+    """``engine.Draws`` on the CPU, moved to ``device``: engines on the
+    card and on the CPU then draw the same numbers."""
+
+    def __init__(self, engine, seed, device):
+        self.base, self.device = engine.Draws(seed, "cpu"), device
+
+    def rekey_tracker(self):
+        self.base.rekey_tracker()
+
+    def reset_mapmaker(self):
+        self.base.reset_mapmaker()
+
+    def track(self, n):
+        return tuple(u.to(self.device) for u in self.base.track(n))
+
+    def mlesac(self, trials, n):
+        return self.base.mlesac(trials, n).to(self.device)
+
+    def plane(self, n_ransacs, n):
+        return self.base.plane(n_ransacs, n).to(self.device)
+
+
+class CallCounts:
+    """Counts the calls of module functions while active (each patched
+    with a counting wrapper, restored on exit)."""
+
+    def __init__(self, targets):
+        self.targets, self.n = targets, {name: 0 for _, name in targets}
+
+    def __enter__(self):
+        self.saved = []
+        for mod, name in self.targets:
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+
+            def wrapped(*a, _fn=fn, _name=name, **kw):
+                self.n[_name] += 1
+                return _fn(*a, **kw)
+            setattr(mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+MAPMAKER_JOBS = ("integrations", "points integrated", "local BA",
+                 "global BA", "new-point re-finds",
+                 "re-finds of integrated points", "failure-queue re-finds",
+                 "GC runs")
+
+
+def watch_mapmaker(mm, jobs):
+    """Count in ``jobs`` (keys ``MAPMAKER_JOBS``) the MapMaker's BA runs
+    applied (local, global), integrations started, the points that landed
+    integrations added, re-finds of new points started (and those among
+    them started after an integration added points), re-finds of the
+    failure queue started, and GC runs, by wrapping its methods."""
+    poll = mm._ba_poll
+    drain = mm._drain_integrate
+    refind_new = mm.refind_newly_made
+    grown = [False]
+
+    def ba_poll(*a, **kw):
+        job = mm._ba_job
+        busy = poll(*a, **kw)
+        if (job is not None and job["state"] is not None
+                and mm._ba_job is None and not mm.reset_requested):
+            jobs["local BA" if job["recent"] else "global BA"] += 1
+        return busy
+
+    def starts(name, key, ready):
+        fn = getattr(mm, name)
+
+        def wrapped(*a, **kw):
+            jobs[key] += int(ready())
+            return fn(*a, **kw)
+        setattr(mm, name, wrapped)
+
+    def drain_integrate(*a, **kw):
+        pending = mm._pending_integrate
+        slot = drain(*a, **kw)
+        if slot is not None:
+            n = pending.read()[1]
+            jobs["points integrated"] += n
+            grown[0] |= n > 0
+        return slot
+
+    def refind_newly_made(*a, **kw):
+        if mm._new_points_pending and mm._refind_task is None:
+            jobs["new-point re-finds"] += 1
+            jobs["re-finds of integrated points"] += int(grown[0])
+            grown[0] = False
+        return refind_new(*a, **kw)
+
+    mm._ba_poll = ba_poll
+    mm._drain_integrate = drain_integrate
+    mm.refind_newly_made = refind_newly_made
+    starts("_integrate_start", "integrations", lambda: bool(mm.kf_queue))
+    starts("refind_from_failure_queue", "failure-queue re-finds",
+           lambda: mm._failures_pending and mm._refind_task is None)
+    starts("handle_bad_points", "GC runs", lambda: mm._map_dirty)
+
+
+def engine_outcome(infos, seq, torch, tag):
+    """11a's bars on a run's FrameInfos: init by frame 10, at least 80%
+    of the tracked frames GOOD and more than 30 found after the first,
+    keyframes added, ATE after Sim(3) alignment under 5% of the
+    trajectory's span. Returns the first tracked frame."""
+    from ptam_cg_tpu_torch.utils import evaluate
+    from ptam_cg_tpu_torch.utils.se3 import SE3
+    stages = [i.stage for i in infos]
+    check("TRACKING" in stages and stages.index("TRACKING") <= 10,
+          f"{tag}: no init by frame 10: {stages[:12]}")
+    first = stages.index("TRACKING")
+    check(stages[first:] == ["TRACKING"] * (len(stages) - first),
+          f"{tag}: the map was lost after init")
+    tracked = [(k, i) for k, i in enumerate(infos) if i.stage == "TRACKING"]
+    good = sum(i.quality == 2 for _, i in tracked)
+    bad_found = [(k, i.n_found) for k, i in tracked[1:] if i.n_found <= 30]
+    est = evaluate.camera_centers(SE3(
+        torch.stack([i.pose.R for _, i in tracked]),
+        torch.stack([i.pose.t for _, i in tracked])))
+    gt = torch.stack([-(seq.pose(k).R.T @ seq.pose(k).t) for k, _ in tracked])
+    ate = evaluate.ate_rmse(est, gt)
+    span = float(torch.linalg.vector_norm(gt.max(0).values - gt.min(0).values))
+    n_added = sum(i.added_kf for i in infos)
+    print(f"[11] {tag}: init on frame {first}; {good}/{len(tracked)} tracked "
+          f"frames GOOD; found a tracked frame min "
+          f"{min(i.n_found for _, i in tracked[1:])}; {n_added} keyframes "
+          f"added, {infos[-1].n_kfs} in the map, {infos[-1].n_points} "
+          f"points; relocalized on {sum(i.relocalized for i in infos)} "
+          f"frames; ATE {ate:.3e} after Sim(3) alignment, trajectory span "
+          f"{span:.4f} ({ate / max(span, 0.1) * 100:.3f}%)")
+    check(good >= 0.8 * len(tracked), f"{tag}: under 80% of frames GOOD")
+    check(not bad_found, f"{tag}: frames with 30 or fewer found: {bad_found}")
+    check(n_added > 0, f"{tag}: no keyframe added")
+    check(ate < 0.05 * max(span, 0.1), f"{tag}: ATE {ate} over the bar")
+    return first
+
+
+def scaled_poses(infos, first, torch):
+    """Each frame's R and t over |t| on the init frame, on the CPU."""
+    s = float(torch.linalg.vector_norm(infos[first].pose.t))
+    return [(i.pose.R.cpu(), i.pose.t.cpu() / s) for i in infos]
+
+
+def engine_diffs(a, b, first, torch):
+    """(frames whose outcome differs, max |dR|, max |dt| over |t|) of two
+    runs of the same frames."""
+    outcome = [(k, x.stage, x.quality, x.n_kfs, x.added_kf)
+               for k, x in enumerate(a)]
+    other = [(k, x.stage, x.quality, x.n_kfs, x.added_kf)
+             for k, x in enumerate(b)]
+    bad = [(x, y) for x, y in zip(outcome, other) if x != y]
+    pa, pb = scaled_poses(a, first, torch), scaled_poses(b, first, torch)
+    d_R = max(max_abs_diff(x[0], y[0]) for x, y in zip(pa[first:],
+                                                        pb[first:]))
+    d_t = max(max_abs_diff(x[1], y[1]) for x, y in zip(pa[first:],
+                                                        pb[first:]))
+    return bad, d_R, d_t
+
+
+def engine(torch, dev, card, kernels, reset_counts, counts):
+    """Phase 11: ``SLAMEngine.process_frame`` on bench_engine.py's scene,
+    deterministic (11a), card against CPU (11b), the card's latency mode
+    (11c), relocalization and reset (11d); then a faster orbit on which
+    integrations add points, card against CPU (11e)."""
+    import numpy as np
+    from ptam_cg_tpu_torch.config import (CameraConfig, EngineConfig,
+                                          MapMakerConfig)
+    from ptam_cg_tpu_torch.io import synth
+    from ptam_cg_tpu_torch.models import engine as englib
+    from ptam_cg_tpu_torch.models import initializer, keyframe, mapmaker
+    from ptam_cg_tpu_torch.models import tracker
+
+    W, H = SIZE
+    seq = synth.SyntheticSequence(REF_PARAMS, image_size=SIZE, device=dev,
+                                  **ENG_SEQ)
+    frames = [seq.frame(i).clamp(0, 255).to(torch.uint8).cpu().numpy()
+              for i in range(ENG_SEQ["n_frames"])]
+
+    def make(device, cand_min=ENG_CAND_MIN, capacity=ENG_MAP, **kw):
+        cfg = EngineConfig(
+            camera=CameraConfig(params=REF_PARAMS, image_size=SIZE),
+            mapmaker=MapMakerConfig(candidate_min_shi_tomasi_score=cand_min))
+        return englib.SLAMEngine(cfg, image_size=SIZE, device=device,
+                                 **capacity, **kw)
+
+    # What launches each kernel on the engine's path: K1 in every build,
+    # K3 in a keyframe build; K2 4 a tracked frame, 2 a re-find of one
+    # keyframe, 3 an epipolar level, 1 at the trail start, 3 a trail
+    # frame, 2 in an init outside its epipolar levels.
+    targets = [(tracker, "track_frame_from_image"), (keyframe, "build_frame"),
+               (mapmaker, "refind_in_kf"), (mapmaker, "add_points_epipolar"),
+               (initializer, "trail_start"), (initializer, "trail_advance"),
+               (initializer, "init_from_stereo")]
+
+    def expected(n):
+        return {"fast10": n["track_frame_from_image"] + n["build_frame"],
+                "shi_tomasi": n["build_frame"],
+                "gather_windows": 4 * n["track_frame_from_image"]
+                + 2 * n["refind_in_kf"] + 3 * n["add_points_epipolar"]
+                + n["trail_start"] + 3 * n["trail_advance"]
+                + 2 * n["init_from_stereo"]}
+
+    def run(eng, ims, times=None):
+        """Each frame's FrameInfo; ``times`` gets each ``process_frame``'s
+        return time on the host clock (no sync, as bench_engine.py)."""
+        infos = []
+        for im in ims:
+            t0 = time.perf_counter()
+            infos.append(eng.process_frame(im))
+            if times is not None:
+                times.append(time.perf_counter() - t0)
+        return infos
+
+    # ---- 11a. the card, deterministic, every frame ----
+    eng = make(dev, deterministic=True, draws=HostDraws(englib, 0, dev))
+    jobs = dict.fromkeys(MAPMAKER_JOBS, 0)
+    watch_mapmaker(eng.mapmaker, jobs)
+    max_kfs_seen = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with CallCounts(targets) as calls:
+        card_a = []
+        for im in frames:
+            card_a.append(eng.process_frame(im))
+            max_kfs_seen.append(eng.mapmaker.n_kfs())
+    torch.cuda.synchronize()
+    a_s = time.perf_counter() - t0
+    launches = counts()
+    want = expected(calls.n)
+    print(f"[11a] {W}x{H}, {len(frames)} frames, deterministic: {a_s:.1f} s "
+          f"(host clock); calls {calls.n}; MapMaker jobs {jobs}; launches "
+          f"{launches}, expected {want}  [{card}]")
+    check(launches == want, "phase-11a launch counts differ")
+    for name, n in launches.items():
+        kernels[name]["launches"] += n
+    first = engine_outcome(card_a, seq, torch, "11a")
+    check(jobs["global BA"] > 0, "11a: no global BA was applied")
+    check(jobs["local BA"] > 0 or max(max_kfs_seen) < 8,
+          "11a: no local BA with 8 or more keyframes")
+    check(jobs["failure-queue re-finds"] > 0 and jobs["GC runs"] > 0,
+          "11a: the failure queue or GC never ran")
+
+    # ---- 11b. card against CPU, the first frames through two keyframes
+    # integrated by the scheduler ----
+    n_b = next((k + 1 for k, i in enumerate(card_a) if i.n_kfs >= 4), None)
+    check(n_b is not None, "11a: fewer than two keyframes integrated")
+    cpu_runs = {}
+    n_threads = torch.get_num_threads()
+    for name, threads, n in (("cpu", n_threads, n_b), ("cpu1", 1, ENG_CPU1)):
+        torch.set_num_threads(threads)
+        t0 = time.perf_counter()
+        cpu_runs[name] = run(make("cpu", deterministic=True,
+                                  draws=HostDraws(englib, 0, "cpu")),
+                             frames[:n])
+        cpu_runs[name + " s"] = time.perf_counter() - t0
+    torch.set_num_threads(n_threads)
+    bad, d_R, d_t = engine_diffs(card_a[:n_b], cpu_runs["cpu"], first, torch)
+    _, t_R, t_t = engine_diffs(cpu_runs["cpu1"], cpu_runs["cpu"][:ENG_CPU1],
+                               first, torch)
+    print(f"[11b] card vs CPU over frames 0..{n_b - 1} ({n_b - first} "
+          f"tracked, {card_a[n_b - 1].n_kfs} keyframes): outcome differences "
+          f"{bad}; |dR| {d_R:.2e}, |dt| / |t| {d_t:.2e}; CPU 1 vs "
+          f"{n_threads} threads over frames 0..{ENG_CPU1 - 1}: |dR| "
+          f"{t_R:.2e}, |dt| / |t| {t_t:.2e}; CPU {cpu_runs['cpu s']:.1f} s, "
+          f"1 thread {cpu_runs['cpu1 s']:.1f} s")
+    check(not bad, "11b: card and CPU engines differ in outcome")
+    check(d_R <= ENG_ROT_TOL and d_t <= ENG_T_TOL,
+          "11b: card and CPU engine poses differ")
+
+    # ---- 11c. the card's default (latency) mode ----
+    eng = make(dev)
+    check(not eng.mapmaker.deterministic, "11c: the card's engine is not in "
+          "latency mode")
+    mm, busy_passes = eng.mapmaker, [0, 0]
+    step = mm.step
+
+    def counted_step(*a, **kw):
+        # A pass that finds the last mapping dispatch still running on
+        # the card skips its dispatch (the backpressure of latency mode).
+        busy_passes[0] += 1
+        busy_passes[1] += int(mm._last_dispatch is not None
+                              and not mm._last_dispatch.query())
+        return step(*a, **kw)
+    mm.step = counted_step
+    n_main = len(frames) - ENG_PROFILE - ENG_SYNC
+    times = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with CallCounts(targets) as calls:
+        lat = run(eng, frames[:n_main], times)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        passes, busy = busy_passes
+        syncs = []
+        for im in frames[n_main: n_main + ENG_SYNC]:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    lat.append(eng.process_frame(im))
+                    torch.cuda.synchronize()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs.append(sorted(f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}"
+                                for w in caught
+                                if "called a synchronizing" in str(w.message)))
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tp = time.perf_counter()
+            lat += run(eng, frames[n_main + ENG_SYNC:])
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - tp
+    launches = counts()
+    want = expected(calls.n)
+    check(launches == want, f"phase-11c launch counts {launches} differ "
+          f"from {want}")
+    for name, n in launches.items():
+        kernels[name]["launches"] += n
+    busy_us = sum(t for _, t, _ in device_rows(prof))
+    tracked = [(k, times[k]) for k, i in enumerate(lat[:n_main])
+               if i.stage == "TRACKING"]
+    kf_frames = [(k, round(t * 1e3, 1)) for k, t in tracked
+                 if lat[k].added_kf]
+    steady = sorted(t * 1e3 for k, t in tracked if not lat[k].added_kf)
+    pct = lambda q: steady[min(len(steady) - 1, int(q * len(steady)))]  # noqa
+    print(f"[11c] latency mode, frames 0..{n_main - 1}: tracked-frame latency "
+          f"(host clock, process_frame's return, no sync) p50 "
+          f"{pct(0.5):.1f} ms, p95 {pct(0.95):.1f} ms, max "
+          f"{steady[-1]:.1f} ms over {len(steady)} frames; keyframe frames "
+          f"(frame, ms) {kf_frames}; {n_main / wall:.2f} FPS over all "
+          f"{n_main} frames ({wall:.1f} s, one sync at the end); mapping "
+          f"passes that found the card busy {busy} of {passes}  [{card}]")
+    print(f"[11c] host reads a tracked frame (sync debug mode), frames "
+          f"{n_main}..{n_main + ENG_SYNC - 1}: {[len(x) for x in syncs]}; "
+          f"where: {sorted(set(sum(syncs, [])))}")
+    print(f"[11c] device busy share over frames {n_main + ENG_SYNC}.."
+          f"{len(frames) - 1} (profiler): {busy_us / 1e3:.1f} ms of device "
+          f"time in {prof_wall * 1e3:.1f} ms, "
+          f"{busy_us / 1e6 / prof_wall * 100:.1f}% busy; launches {launches}"
+          f"  [{card}]")
+    engine_outcome(lat, seq, torch, "11c")
+
+    # ---- 11d. relocalization and reset (tests/test_engine_reloc.py) ----
+    rseq = synth.SyntheticSequence(REF_PARAMS, image_size=SIZE, device=dev,
+                                   **RELOC_SEQ)
+    rframes = [rseq.frame(i).clamp(0, 255).to(torch.uint8).cpu().numpy()
+               for i in range(RELOC_SEQ["n_frames"])]
+    eng = make(dev, cand_min=INIT_CAND_MIN, capacity=dict(
+        INIT_MAP, auto_init_frames=6, seed=0), deterministic=True)
+    info = run(eng, rframes[:12])[-1]
+    check(info.stage == "TRACKING" and info.quality == 2,
+          f"11d: not GOOD after 12 frames: {info}")
+    rng = np.random.default_rng(0)
+    noise = run(eng, [rng.uniform(0, 255, (H, W)).astype(np.float32)
+                      for _ in range(6)])
+    relocalized = any(i.relocalized for i in noise)
+    back = []
+    for i in (6, 7, 8, 6, 7, 8, 7, 7):
+        back.append(eng.process_frame(rframes[i]))
+        relocalized |= back[-1].relocalized
+        if back[-1].quality == 2:
+            break
+    print(f"[11d] six noise frames: qualities {[i.quality for i in noise]}; "
+          f"then the sequence again: "
+          f"{[(i.quality, i.relocalized) for i in back]}; found "
+          f"{back[-1].n_found}")
+    check(noise[-1].quality != 2, "11d: the noise frames did not lose "
+          "tracking")
+    check(relocalized and back[-1].quality == 2 and back[-1].n_found > 50,
+          "11d: no relocalization back to GOOD within 8 frames")
+    eng = make(dev, cand_min=INIT_CAND_MIN, capacity=dict(
+        INIT_MAP, auto_init_frames=6, seed=0), deterministic=True)
+    info = run(eng, rframes[:10])[-1]
+    check(info.stage == "TRACKING", "11d: no init on the reset run")
+    m = eng.map
+    eng.map = eng.mapmaker.map = dataclasses.replace(m, meas_pos=torch.where(
+        m.meas_valid[..., None], torch.tensor(3e19, device=dev),
+        m.meas_pos))
+    eng.mapmaker.converged_recent, eng.mapmaker.converged_full = True, False
+    after = []
+    for im in rframes[10:]:
+        after.append(eng.process_frame(im))
+        if after[-1].stage == "NOT_STARTED":
+            break
+    reset = after[-1]
+    again = []
+    for im in rframes + rframes:
+        again.append(eng.process_frame(im))
+        if again[-1].stage == "TRACKING":
+            break
+    print(f"[11d] poisoned meas_pos: stages after it "
+          f"{[i.stage for i in after]} ({reset.n_points} points, "
+          f"{reset.n_kfs} keyframes); re-initialized after {len(again)} "
+          f"frames: {again[-1].stage}, {again[-1].n_points} points")
+    check(reset.stage == "NOT_STARTED" and reset.n_points == 0
+          and reset.n_kfs == 0 and not eng.mapmaker.reset_requested,
+          "11d: the poisoned map was not ditched")
+    check(again[-1].stage == "TRACKING", "11d: no re-init after the reset")
+
+    # ---- 11e. the map grows while the camera tracks: card and CPU ----
+    gseq = synth.SyntheticSequence(REF_PARAMS, image_size=SIZE, device=dev,
+                                   **GROW_SEQ)
+    gframes = [gseq.frame(i).clamp(0, 255).to(torch.uint8).cpu().numpy()
+               for i in range(GROW_SEQ["n_frames"])]
+    grown, gjobs, secs = {}, {}, {}
+    for tag, where, threads in (("card", dev, n_threads),
+                                ("CPU", "cpu", n_threads),
+                                ("CPU 1 thread", "cpu", 1)):
+        torch.set_num_threads(threads)
+        eng = make(where, cand_min=INIT_CAND_MIN, deterministic=True,
+                   draws=HostDraws(englib, 0, where))
+        gjobs[tag] = dict.fromkeys(MAPMAKER_JOBS, 0)
+        watch_mapmaker(eng.mapmaker, gjobs[tag])
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with CallCounts(targets) as calls:
+            grown[tag] = run(eng, gframes)
+        torch.cuda.synchronize()
+        secs[tag] = time.perf_counter() - t0
+        if tag == "card":
+            launches, want = counts(), expected(calls.n)
+    torch.set_num_threads(n_threads)
+    check(launches == want, f"phase-11e launch counts {launches} differ "
+          f"from {want}")
+    for name, n in launches.items():
+        kernels[name]["launches"] += n
+    card_g, cpu_g = grown["card"], grown["CPU"]
+    moved = [(k, i.n_points) for k, i in enumerate(card_g)
+             if k == 0 or i.n_points != card_g[k - 1].n_points]
+    print(f"[11e] {W}x{H}, test_slam_e2e.py's orbit over "
+          f"{GROW_SEQ['n_frames']} frames, deterministic: card "
+          f"{secs['card']:.1f} s, CPU {secs['CPU']:.1f} s, 1 thread "
+          f"{secs['CPU 1 thread']:.1f} s (host clock); MapMaker jobs "
+          f"{gjobs}; (frame, points) where the card's count moved "
+          f"{moved}; launches {launches}  [{card}]")
+    first_g = engine_outcome(card_g, gseq, torch, "11e")
+    check(gjobs["card"]["points integrated"] > 0, "11e: no integration "
+          "added a point")
+    check(gjobs["card"]["re-finds of integrated points"] > 0, "11e: no "
+          "re-find of the points an integration added")
+    bad, d_R, d_t = engine_diffs(card_g, cpu_g, first_g, torch)
+    bad1, t_R, t_t = engine_diffs(grown["CPU 1 thread"], cpu_g, first_g,
+                                  torch)
+
+    def point_diffs(a, b):
+        return [(k, x.n_points, y.n_points) for k, (x, y)
+                in enumerate(zip(a, b)) if x.n_points != y.n_points]
+    print(f"[11e] over frames 0..{len(gframes) - 1}, card vs CPU: outcome "
+          f"differences {bad}; point counts that differ (frame, card, CPU) "
+          f"{point_diffs(card_g, cpu_g)}; |dR| {d_R:.2e}, |dt| / |t| "
+          f"{d_t:.2e}; CPU 1 vs {n_threads} threads: outcome differences "
+          f"{bad1}; point counts that differ "
+          f"{point_diffs(grown['CPU 1 thread'], cpu_g)}; |dR| {t_R:.2e}, "
+          f"|dt| / |t| {t_t:.2e}")
+    check(not bad, "11e: card and CPU engines differ in outcome")
+    check(d_R <= GROW_ROT_TOL and d_t <= GROW_T_TOL,
+          "11e: card and CPU engine poses differ")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1652,6 +2155,9 @@ def main():
 
     # ---- 10. the bootstrap path: trails, stereo init, relocalization ----
     bootstrap(torch, dev, card, kernels, reset_launch_counts, launch_counts)
+
+    # ---- 11. the engine: process_frame end to end ----
+    engine(torch, dev, card, kernels, reset_launch_counts, launch_counts)
 
     check(not any(k == "jax" or k.startswith("jax.") for k in sys.modules),
           "jax was imported")

@@ -1,8 +1,8 @@
-"""The mapping engine's jobs (port of ``ptam_cg_tpu.models.mapmaker``):
-keyframe integration, the epipolar job, bundle adjustment glue, bad-point
-GC, the dominant-plane alignment, and a ``MapMaker`` with the methods
-bundle adjustment and stereo init use. The integrate queue, the failure
-queue and the ``step()`` scheduler are not ported yet.
+"""The mapping engine (port of ``ptam_cg_tpu.models.mapmaker``): keyframe
+integration, re-find, the epipolar job, bundle adjustment glue, bad-point
+GC, the dominant-plane alignment, and the ``MapMaker`` that schedules them
+(``step``): the keyframe queue, the phased integration, local and global
+BA, the span re-finds of new points and of the failure queue, and GC.
 
 Keyframe integration inserts the new keyframe, writes the tracker's
 measurements, re-finds every map point in it (``refind_in_kf``), then
@@ -39,6 +39,7 @@ import functools
 import time
 import warnings
 
+import numpy as np
 import torch
 
 from ptam_cg_tpu_torch.camera import atan
@@ -365,6 +366,35 @@ def refind_in_kf(m: MapState, k, point_mask: Tensor, cam: atan.Camera,
         diag.update(ssd=res.ssd, margin=res.margin,
                     step=torch.where(use_sp, sp.last_step, 0.0))
     return new_m, torch.sum(found.to(torch.int32))
+
+
+def refind_all_kfs(m: MapState, mask2d: Tensor, cam: atan.Camera, image_size,
+                   ks: range | None = None):
+    """``refind_in_kf`` of every keyframe in ``ks`` (a range of slots, all
+    K by default) that has work: a valid keyframe with a point selected by
+    its row of the (K, P) ``mask2d`` that is valid, not measured there and
+    not marked never-retry there (ReFindNewlyMade with a broadcast row,
+    ReFindFromFailureQueue with the failure mask). Re-finding keyframe k
+    writes only row k, so the span's ``has_work`` is read on the host once,
+    and equals the JAX scan's per-step ``lax.cond``; a slot scanned again
+    has no work left (each point it tried is now measured or never-retry).
+    Returns (map, found count over the span as a 0-dim int32 tensor)."""
+    if ks is None:
+        ks = range(m.kf_valid.shape[0])
+    sl = slice(ks.start, ks.stop)
+    has_work = (m.kf_valid[sl] & torch.any(
+        mask2d[sl] & m.point_valid & ~m.meas_valid[sl] & ~m.never_retry[sl],
+        dim=-1)).tolist()
+    dev = m.point_pos.device
+    # Slots as device scalars: a Python int would be copied to the card
+    # for every keyframe re-found.
+    slots = torch.arange(ks.start, ks.stop, device=dev)
+    total = torch.zeros((), dtype=torch.int32, device=dev)
+    for k, slot, work in zip(ks, slots, has_work):
+        if work:
+            m, n = refind_in_kf(m, slot, mask2d[k], cam, image_size)
+            total = total + n
+    return m, total
 
 
 # ---------------------------------------------------------------------------
@@ -716,28 +746,60 @@ def apply_global_transform(m: MapState, T: SE3) -> MapState:
 # Host orchestrator
 # ---------------------------------------------------------------------------
 
+class _HostCopy:
+    """A small device tensor on its way to the host: a copy into pinned
+    memory started without waiting, under an event. A CPU tensor is
+    complete already."""
+
+    def __init__(self, t: Tensor):
+        self._event = None
+        if t.is_cuda:
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = t
+
+    def ready(self) -> bool:
+        return self._event is None or self._event.query()
+
+    def read(self) -> list:
+        """The values; blocks until the copy has landed."""
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.tolist()
+
+
 class MapMaker:
-    """The mapping side's bundle adjustment, bad-point GC, epipolar
-    expansion and plane alignment: what stereo init and BA use of the JAX
-    package's MapMaker. A keyframe waiting in ``kf_queue`` aborts a BA run
-    between chunks, as the reference's abort flag does; the keyframe
-    queue's integration and the ``step()`` scheduler that fill it are not
-    ported yet.
+    """The mapping side's priority scheduler (MapMaker::run) over its jobs:
+    keyframe integration in five phases, local and global BA in chunks,
+    re-find of new points and of the failure queue in 16-slot spans, and
+    bad-point GC. The caller (the engine, once a frame) calls ``step``; a
+    keyframe waiting in ``kf_queue`` aborts a BA run between chunks, as the
+    reference's abort flag does. Stereo init uses the BA, expansion and
+    plane-alignment methods directly.
 
     One device only: the JAX MapMaker's ``mesh`` (point-sharded global BA)
     has no counterpart here, so the constructor takes none.
 
-    ``deterministic``: True runs BA in fixed ``ba_steps_per_pass``
-    chunks, a pure function of the inputs (the parity contract); False
-    (latency mode) sizes chunks from a measured per-step time to fit
-    ``ba_latency_budget_ms``. None picks deterministic for a map on the
-    CPU and latency mode on the card. A chunk reads its flags on the host
-    as it runs (``bundle.lm_chunk``), so it has ended when its dispatch
-    returns, and a poll needs no readiness check.
+    ``deterministic``: True makes every gate block and runs BA in fixed
+    ``ba_steps_per_pass`` chunks, so a run is a pure function of its inputs
+    (the parity contract); False (latency mode) skips a pass while the
+    last mapping dispatch is still running on the card and sizes chunks
+    from a measured per-step time to fit ``ba_latency_budget_ms``. None
+    picks deterministic for a map on the CPU and latency mode on the card.
+    A CUDA event recorded after each mapping dispatch is the gate
+    (``_last_dispatch``), and the packed (slot, n_added) of an integration
+    comes back through pinned memory under an event; for a map on the CPU
+    both have completed when the call returns. A BA chunk reads its flags
+    on the host as it runs (``bundle.lm_chunk``), so it has ended when its
+    dispatch returns, and a poll needs no readiness check.
 
     ``seed`` seeds ``generator``, a ``torch.Generator`` on the map's
     device, which draws the plane aligner's uniforms when the caller gives
-    none (the JAX MapMaker splits a PRNG key made from the same seed).
+    none (the JAX MapMaker splits a PRNG key made from the same seed), and
+    the numpy generator of the failure-queue draw, as in the JAX package.
     """
 
     def __init__(self, m: MapState, cam: atan.Camera, image_size,
@@ -759,14 +821,17 @@ class MapMaker:
         self.max_ba_meas = (min(K * MAX_MEAS_PER_KF, K * P)
                             if max_ba_meas is None else max_ba_meas)
         dev = m.meas_valid.device
+        #: (K, P) measurements BA rejected that re-find should retry.
         self.failure_mask = torch.zeros(K, P, dtype=torch.bool, device=dev)
         #: Points added by epipolar expansion, not yet re-found elsewhere.
         self.new_point_mask = torch.zeros(P, dtype=torch.bool, device=dev)
-        #: Set when an expansion added points; the scheduler (not ported
-        #: yet) reads it to start their re-find.
+        #: Host-side flags: an expansion added points / a BA run filled
+        #: the failure mask (so the scheduler never reads a mask to know).
         self._new_points_pending = False
+        self._failures_pending = False
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(seed)
+        self._rng = np.random.default_rng(seed)
         # BA size tiers (power-of-two caps, see _ba_caps); the floors only
         # ratchet up (overflow escalation).
         self._tier_c_floor = 4
@@ -777,15 +842,31 @@ class MapMaker:
         #: True measurement count of the last BA extract.
         self._last_n_sel = 0
         #: Host-side keyframe count and mirror of ``map.good`` (read here
-        #: once; stereo init sets both). The scheduler (not ported yet)
-        #: reads ``good_host`` to skip work on a map that is not good.
+        #: once; stereo init sets both, integration counts keyframes).
         self._n_kfs_host = int(torch.sum(m.kf_valid.to(torch.int32)))
         self.good_host = bool(m.good)
         #: Keyframe distances are measured in units of this (stereo init
         #: sets it to wiggle_scale / scene depth).
         self.wiggle_depth_norm = 1.0
-        #: Keyframes waiting for integration; a non-empty queue aborts BA.
+        #: Keyframes waiting for integration: (features, pose, meas,
+        #: depth_mean, depth_sigma); a non-empty queue aborts BA.
         self.kf_queue: list = []
+        #: In-flight phased integration: {"slot", "tot", "phase"}.
+        self._integrate_job = None
+        #: The last integration's (slot, n_added) on its way to the host.
+        self._pending_integrate = None
+        #: Event recorded after the last mapping dispatch on the card.
+        self._last_dispatch = None
+        #: Re-find spans: 16-slot windows over the keyframes; when K is
+        #: not a multiple of 16 the last window ends at K and re-scans
+        #: slots of the one before it (a no-op there).
+        span = min(16, K)
+        self._span_ks = [range(k0, k0 + span)
+                         for k0 in range(0, K - span + 1, span)]
+        if K % span:
+            self._span_ks.append(range(K - span, K))
+        #: In-flight span re-find: {"mask2d": (K, P) bool, "i": span}.
+        self._refind_task = None
         #: In-flight BA job (see _ba_start/_ba_poll).
         self._ba_job = None
         self._map_dirty = False
@@ -796,6 +877,16 @@ class MapMaker:
         #: Per-LM-step wall time EMA (ms) in latency mode; None until the
         #: first chunk ends.
         self._ba_step_ms = None
+
+    def _note_dispatch(self):
+        """Record the scheduler's backpressure event after a mapping
+        dispatch on the card (see ``step``)."""
+        if self.map.point_pos.is_cuda:
+            self._last_dispatch = torch.cuda.Event()
+            self._last_dispatch.record()
+
+    def queue_size(self) -> int:
+        return len(self.kf_queue)
 
     def n_kfs(self) -> int:
         return self._n_kfs_host
@@ -834,6 +925,7 @@ class MapMaker:
                             pt_idx=pt_idx, adjust=adjust_kf, pmask=point_mask,
                             recent=recent, full=full, counts=counts,
                             caps=caps, state=None, iters_done=0)
+        self._note_dispatch()
 
     def _ba_init_state(self):
         job = self._ba_job
@@ -927,6 +1019,8 @@ class MapMaker:
             self.map, job["state"].problem, job["mk"], job["mp"],
             job["adjust"], job["pmask"], self.failure_mask, job["cam_idx"],
             job["pt_idx"])
+        self._note_dispatch()
+        self._failures_pending = True
         self._map_dirty = True
         if accepted > 0:
             if job["recent"]:
@@ -993,7 +1087,228 @@ class MapMaker:
         if not self._map_dirty:
             return
         self.map = handle_bad_points(self.map, self.cfg)
+        self._note_dispatch()
         self._map_dirty = False
 
     def mark_dirty(self):
         self._map_dirty = True
+
+    # -- span re-find tasks -------------------------------------------------
+    # The scheduler snapshots the selection mask and re-finds one 16-slot
+    # span a pass. Map updates between spans are safe: a span skips points
+    # already measured (``refind_all_kfs``).
+
+    def _start_refind_task(self, mask2d: Tensor):
+        self._refind_task = dict(mask2d=mask2d, i=0)
+
+    def _refind_advance(self):
+        task = self._refind_task
+        self.map, _ = refind_all_kfs(self.map, task["mask2d"], self.cam,
+                                     self.image_size,
+                                     self._span_ks[task["i"]])
+        self._note_dispatch()
+        task["i"] += 1
+        if task["i"] >= len(self._span_ks):
+            self._refind_task = None
+
+    def refind_newly_made(self, spread: bool = False):
+        """ReFindNewlyMade: re-find the expansion's new points in every
+        keyframe. With ``spread`` the spans are left to later passes;
+        otherwise they all run now (the same result)."""
+        if self._new_points_pending and self._refind_task is None:
+            K = self.map.kf_valid.shape[0]
+            self._start_refind_task(self.new_point_mask.expand(
+                K, self.new_point_mask.shape[0]))
+            self.new_point_mask = torch.zeros_like(self.new_point_mask)
+            self._new_points_pending = False
+        if not spread:
+            while self._refind_task is not None:
+                self._refind_advance()
+
+    def refind_from_failure_queue(self, spread: bool = False):
+        """ReFindFromFailureQueue: retry the measurements BA rejected."""
+        if self._failures_pending and self._refind_task is None:
+            self._start_refind_task(self.failure_mask)
+            self.failure_mask = torch.zeros_like(self.failure_mask)
+            self._failures_pending = False
+        if not spread:
+            while self._refind_task is not None:
+                self._refind_advance()
+
+    # -- phased keyframe integration ----------------------------------------
+    # AddKeyFrameFromTopOfQueue as five dispatches, one a scheduler pass:
+    # insert + tracker measurements + re-find in the new keyframe, then
+    # one epipolar level each (order 3, 0, 1, 2). The last packs (slot,
+    # n_added), read by a later pass (``_drain_integrate``).
+
+    def add_keyframe(self, features: FrameFeatures, pose: SE3, meas: dict,
+                     depth_mean, depth_sigma):
+        """MapMaker::AddKeyFrame: enqueue; a queued keyframe aborts BA.
+        ``meas``: the tracker's measurements, a dict of point, pos, level,
+        subpix and valid."""
+        self.kf_queue.append((features, pose, meas, depth_mean, depth_sigma))
+
+    def _integrate_start(self):
+        """Phase 0: pop the queue; insert, tracker measurements and the
+        re-find in the new keyframe."""
+        if not self.kf_queue:
+            return None
+        if self._n_kfs_host >= self.map.kf_valid.shape[0]:
+            return None     # keyframe capacity exhausted
+        features, pose, meas, dmean, dsigma = self.kf_queue.pop(0)
+        self.map, slot = integrate_insert_program(
+            self.map, features, pose, meas["point"], meas["pos"],
+            meas["level"], meas["subpix"], meas["valid"], dmean, dsigma,
+            self.cam, self.image_size)
+        self._n_kfs_host += 1
+        self._integrate_job = dict(
+            slot=slot, phase=0,
+            tot=torch.zeros((), dtype=torch.int32, device=slot.device))
+        self._note_dispatch()
+        self.converged_recent = False
+        self.converged_full = False
+        return None
+
+    def _integrate_advance(self):
+        """One epipolar level; the last one packs (slot, n_added) and
+        starts its copy to the host."""
+        job = self._integrate_job
+        ph = job["phase"]
+        self.map, self.new_point_mask, job["tot"] = integrate_epi_program(
+            self.map, job["slot"], self.new_point_mask, job["tot"],
+            EPI_LEVEL_ORDER[ph], self.cam, self.image_size,
+            self.cfg.wiggle_scale, self.cfg.thin_candidates_radius)
+        if ph < len(EPI_LEVEL_ORDER) - 1:
+            job["phase"] = ph + 1
+        else:
+            self._pending_integrate = _HostCopy(torch.stack(
+                [job["slot"], job["tot"].to(torch.int32)]))
+            self._integrate_job = None
+        self._note_dispatch()
+
+    def integrate_keyframe(self):
+        """A whole integration with every phase now (the synchronous
+        entry; the scheduler advances one phase a pass)."""
+        if self._integrate_job is None:
+            before = self._n_kfs_host
+            self._integrate_start()
+            if self._n_kfs_host == before:
+                return None     # nothing to integrate / capacity full
+        while self._integrate_job is not None:
+            self._integrate_advance()
+        return None
+
+    def _drain_integrate(self, block: bool = False):
+        """Land an integration whose (slot, n_added) has reached the host
+        (or wait for it with ``block``). Returns the new keyframe slot, or
+        None."""
+        p = self._pending_integrate
+        if p is None:
+            return None
+        if not block and not p.ready():
+            return None
+        slot, n_added = p.read()
+        self._pending_integrate = None
+        if n_added > 0:
+            self._new_points_pending = True
+        return slot
+
+    def drain_all(self):
+        """Run every in-flight and pending mapping job to its end: phased
+        integrations, deferred reads, BA chunks, queued keyframes, span
+        re-finds. For benches and tests that want a quiescent map; the
+        engine never calls it. Returns the last integrated slot, or None."""
+        last_slot = None
+        while True:
+            if self._integrate_job is not None:
+                while self._integrate_job is not None:
+                    self._integrate_advance()
+            elif self._pending_integrate is not None:
+                slot = self._drain_integrate(block=True)
+                if slot is not None:
+                    last_slot = slot
+            elif self._ba_job is not None:
+                self._ba_poll(block=True)
+            elif self._refind_task is not None:
+                self._refind_advance()
+            elif self.kf_queue:
+                self.integrate_keyframe()
+            else:
+                break
+        return last_slot
+
+    # -- the priority loop ----------------------------------------------------
+    def step(self, newest_kf: int | None = None):
+        """One pass of the mapping priority hierarchy (MapMaker::run): at
+        most one bounded mapping dispatch a pass, two under keyframe-queue
+        pressure. In order: land a finished integration's read; advance an
+        in-flight integration; advance (or finish, or abort) BA; start the
+        next queued integration; local BA of ``newest_kf`` until it
+        converges; an in-flight span re-find; re-find of new points; global
+        BA until it converges; now and then (one pass in 20, drawn from the
+        numpy generator) the failure queue; else bad-point GC. Returns the
+        slot of a keyframe whose integration landed this pass, or None."""
+        if self.reset_requested or not self.good_host:
+            return None
+        # Backpressure: while the last mapping dispatch still runs on the
+        # card, latency mode dispatches nothing (it may still land an
+        # integration's read); deterministic mode waits for it instead,
+        # so which passes do work never depends on device timing.
+        if self._last_dispatch is not None:
+            if self.deterministic:
+                self._last_dispatch.synchronize()
+            elif not self._last_dispatch.query():
+                if self._pending_integrate is not None:
+                    return self._drain_integrate()
+                return None
+            self._last_dispatch = None
+        ret = None
+        if self._pending_integrate is not None:
+            ret = self._drain_integrate(block=self.deterministic)
+            if ret is None:
+                return None     # the read is still on its way
+        if self._integrate_job is not None:
+            # Queued keyframes speed the phases up, capped at two a pass.
+            for _ in range(1 + min(1, len(self.kf_queue))):
+                if self._integrate_job is None:
+                    break
+                self._integrate_advance()
+            return ret
+        if self._ba_job is not None:
+            # Nothing else runs while BA owns the map, except an
+            # integration once an abort has finished it.
+            if self._ba_poll():
+                return ret
+            if self.kf_queue:
+                self._integrate_push()
+            return ret
+        if self.kf_queue:
+            self._integrate_push()
+            return ret
+        if not self.converged_recent and newest_kf is not None:
+            self.bundle_adjust_recent(newest_kf, start_only=True)
+            return ret
+        if self._refind_task is not None:
+            self._refind_advance()
+            return ret
+        if self.converged_recent and self._new_points_pending:
+            self.refind_newly_made(spread=True)
+            return ret
+        if self.converged_recent and not self.converged_full:
+            self.bundle_adjust_all(start_only=True)
+            return ret
+        if (self.converged_recent and self.converged_full
+                and self._failures_pending and self._rng.integers(20) == 0):
+            self.refind_from_failure_queue(spread=True)
+            return ret
+        self.handle_bad_points()
+        return ret
+
+    def _integrate_push(self):
+        """Start the next queued integration; with more keyframes queued,
+        advance one more phase this pass (two dispatches at most)."""
+        self._integrate_start()
+        for _ in range(min(1, len(self.kf_queue))):
+            if self._integrate_job is None:
+                break
+            self._integrate_advance()

@@ -69,7 +69,13 @@ class TrackerState:
     generator: torch.Generator  # draws the per-frame subset uniforms
 
 
-def init_tracker_state(pose: SE3, seed: int = 0) -> TrackerState:
+def init_tracker_state(pose: SE3 | None = None, seed: int = 0,
+                       device="cuda") -> TrackerState:
+    """A tracker state at ``pose`` (the identity on ``device`` when not
+    given; a given pose keeps its own device) with zero velocity, GOOD
+    quality and a generator seeded with ``seed``."""
+    if pose is None:
+        pose = se3lib.identity(device)
     dev = pose.R.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -112,7 +118,7 @@ class TrackResult:
 
 def validate_config(cfg: TrackerConfig) -> None:
     """Reject configs whose search radii exceed the static windows, and
-    the options the port does not have yet."""
+    the bf16 options (TPU-only, not ported)."""
     worst_coarse = math.ceil(2.0 * cfg.coarse_range / (1 << (LEVELS - 2)))
     if worst_coarse > R_WIN - 1:
         raise ValueError(
@@ -125,8 +131,6 @@ def validate_config(cfg: TrackerConfig) -> None:
         raise ValueError(
             f"TrackerConfig fine range {worst_fine} exceeds the fine window "
             f"FINE_R_WIN={FINE_R_WIN} (usable radius {FINE_R_WIN - 1}).")
-    if cfg.track_local:
-        raise NotImplementedError("TrackerConfig.track_local is not ported")
     if cfg.zmssd_bf16_cross:
         raise NotImplementedError(
             "TrackerConfig.zmssd_bf16_cross is not ported")
@@ -260,16 +264,33 @@ def _gn_pose_iterations(pose: SE3, cam: atan.Camera, image_size,
     return SE3(R, t), w
 
 
+def local_point_mask(m: MapState, pose: SE3, n_nearest: int = 4) -> Tensor:
+    """Points measured by the ``n_nearest`` valid keyframes nearest
+    ``pose`` (the PVS restriction of TrackMapLocal). Ties in distance take
+    the lower index, as ``lax.top_k``."""
+    d = ms.closest_kf_distances(m, pose)
+    neg = torch.where(torch.isfinite(d), -d, float("-inf"))
+    idx = torch.sort(neg, descending=True, stable=True).indices[
+        :min(n_nearest, d.shape[0])]
+    near = torch.zeros_like(m.kf_valid)
+    near[idx] = True
+    near = near & m.kf_valid
+    return torch.any(m.meas_valid & near[:, None], dim=0) & m.point_valid
+
+
 def track_map(m: MapState, frame: TrackFeatures, pose: SE3, cam: atan.Camera,
               image_size, msd_vel: Tensor, just_recovered: Tensor,
               cfg: TrackerConfig = TrackerConfig(), *,
               rand_coarse: Tensor | None = None,
               rand_fine: Tensor | None = None,
-              generator: torch.Generator | None = None) -> TrackResult:
+              generator: torch.Generator | None = None,
+              point_filter: Tensor | None = None) -> TrackResult:
     """Two-stage coarse/fine map tracking (Tracker::TrackMap).
 
     ``rand_coarse`` / ``rand_fine``: (P,) uniforms ranking the random
     subsets; each one not given is drawn from ``generator``.
+    ``point_filter``: an optional (P,) mask restricting the PVS
+    (``local_point_mask`` for TrackMapLocal).
     """
     validate_config(cfg)
     W, H = image_size
@@ -288,6 +309,8 @@ def track_map(m: MapState, frame: TrackFeatures, pose: SE3, cam: atan.Camera,
         p_cam, pose.R, m.point_right_w, m.point_down_w,
         atan.project_derivs(z1, cam))
     pvs = m.point_valid & proj_ok & warp.good
+    if point_filter is not None:
+        pvs = pvs & point_filter
     level = warp.level
 
     # ---- coarse stage ----
@@ -415,7 +438,10 @@ def track_frame(state: TrackerState, m: MapState, frame: TrackFeatures,
                 rand_fine: Tensor | None = None) -> FrameOutput:
     """Motion-model predict (with the SBI rotation seed), track_map,
     motion-model update and quality assessment (Tracker::TrackFrame).
-    Uniforms not passed in are drawn from ``state.generator``."""
+    Uniforms not passed in are drawn from ``state.generator``. With
+    ``cfg.track_local``, the PVS is restricted to the points of the
+    ``cfg.track_local_kfs`` keyframes nearest the predicted pose
+    (TrackMapLocal)."""
     W, H = image_size
     dev = state.velocity.device
     sbi_size = ((H >> 3) // 2, (W >> 3) // 2)
@@ -430,10 +456,12 @@ def track_frame(state: TrackerState, m: MapState, frame: TrackFeatures,
     else:
         score = torch.zeros((), dtype=torch.float32, device=dev)
     pred_pose = se3lib.mul(se3lib.se3_exp(vel), start_pose)
-
     res = track_map(m, frame, pred_pose, cam, image_size, state.msd_vel,
                     state.just_recovered, cfg, rand_coarse=rand_coarse,
-                    rand_fine=rand_fine, generator=state.generator)
+                    rand_fine=rand_fine, generator=state.generator,
+                    point_filter=(local_point_mask(m, pred_pose,
+                                                   cfg.track_local_kfs)
+                                  if cfg.track_local else None))
 
     # ---- UpdateMotionModel ----
     motion = se3lib.se3_log(se3lib.mul(res.pose, se3lib.inv(start_pose)))

@@ -65,8 +65,8 @@ _JAX_PACKAGE = re.compile(
 SCANNED = ("models/tracker.py", "models/keyframe.py", "models/mapmaker.py",
            "models/bundle.py", "models/homography.py",
            "models/initializer.py", "models/relocalizer.py",
-           "utils/geometry.py", "utils/mest.py", "io/synth.py",
-           "io/from_jax.py")
+           "models/engine.py", "utils/geometry.py", "utils/mest.py",
+           "utils/evaluate.py", "io/synth.py", "io/from_jax.py")
 
 
 def test_source_scan_covers_every_slice():
@@ -88,8 +88,9 @@ def test_no_source_line_imports_the_jax_package():
 def _entry_points():
     from ptam_cg_tpu_torch.camera import atan
     from ptam_cg_tpu_torch.io import from_jax, synth
-    from ptam_cg_tpu_torch.models import map_state
+    from ptam_cg_tpu_torch.models import engine, map_state, tracker
     return [atan.make_camera, map_state.empty_map, synth.make_texture,
+            tracker.init_tracker_state, engine.SLAMEngine, engine.Draws,
             synth.orbit_trajectory, synth.SyntheticSequence,
             from_jax.tensor, from_jax.se3_from_numpy,
             from_jax.camera_from_numpy, from_jax.sbi_from_numpy,
@@ -110,16 +111,23 @@ def test_entry_points_default_to_the_card():
 
 def test_empty_map_and_make_camera_ask_for_cuda():
     """Without a device they make CUDA tensors, so on a machine with no
-    card they raise instead of falling back to the CPU."""
+    card they raise instead of falling back to the CPU (the engine, its
+    draws and the tracker state too)."""
     from ptam_cg_tpu_torch.camera import atan
-    from ptam_cg_tpu_torch.models import map_state
+    from ptam_cg_tpu_torch.models import engine, map_state, tracker
     calls = [lambda: map_state.empty_map((64, 48), max_points=8, max_kfs=2),
-             lambda: atan.make_camera((1.0, 1.4, 0.5, 0.5, 0.25), (64, 48))]
+             lambda: atan.make_camera((1.0, 1.4, 0.5, 0.5, 0.25), (64, 48)),
+             lambda: tracker.init_tracker_state().pose.R,
+             lambda: engine.Draws().track(4)[0],
+             lambda: engine.SLAMEngine(image_size=(64, 48), max_points=8,
+                                       max_kfs=2).map]
     for call in calls:
         if torch.cuda.is_available():
             leaf = call()
             t = getattr(leaf, "point_pos", None)
-            assert (leaf.params if t is None else t).is_cuda
+            if t is None:
+                t = getattr(leaf, "params", leaf)
+            assert t.is_cuda
         else:
             with pytest.raises((RuntimeError, AssertionError)):
                 call()

@@ -70,12 +70,12 @@ CMP_FIELDS = ("point_valid", "point_src_level", "point_center", "point_pos",
               "meas_valid", "meas_pos", "meas_source")
 
 
-def _jax_map(seq, ff0):
+def _jax_map(seq, ff0, max_kfs=K):
     """bench_mapping.build_scene's map, at most PER_LEVEL candidates a
     level."""
     cam, pose0 = seq.cam, seq.pose(0)
     T_wc = se3lib.inv(pose0)
-    m = map_state.empty_map(SIZE, max_points=P, max_kfs=K)
+    m = map_state.empty_map(SIZE, max_points=P, max_kfs=max_kfs)
     m = map_state.insert_keyframe(m, 0, ff0, pose0, 1.5, 0.1)
     cand_xy, cand_valid = np.asarray(ff0.cand_xy), np.asarray(ff0.cand_valid)
     pts, centers, lvls = [], [], []
@@ -548,6 +548,8 @@ def test_bundle_adjust_failure_requests_reset(monkeypatch):
     monkeypatch.setattr(tbundle, "lm_chunk", failing_chunk)
     maker.bundle_adjust_all()
     assert maker.reset_requested and maker.map is tm
+    # A MapMaker that asked for a reset refuses further work.
+    assert maker.step(None) is None
 
 
 def test_queued_keyframe_aborts_ba():
@@ -651,3 +653,244 @@ def test_bundle_adjust_matches_jax(ba_scene, kind):
                                    rtol=0, atol=tol, err_msg=f)
     assert not torch.equal(tmaker.map.point_pos, tm.point_pos)
     assert int((tmaker.failure_mask | tmaker.map.never_retry).sum()) > 0
+
+
+def test_applied_ba_queues_failures_as_jax(ba_scene):
+    """An applied BA run sets ``_failures_pending`` and fills the failure
+    mask as JAX's does; the failure queue's re-find then clears both and
+    marks the same measurements never-retry."""
+    tm, tcam, jcam = ba_scene
+    jmaker = mapmaker.MapMaker(_to_jax(tm), jcam, BA_SIZE)
+    tmaker = tmapmaker.MapMaker(tms.copy_map(tm), tcam, BA_SIZE)
+    jmaker._n_points_hint = tmaker._n_points_hint = int(tm.point_valid.sum())
+    assert not jmaker._failures_pending and not tmaker._failures_pending
+    for maker in (jmaker, tmaker):
+        maker.bundle_adjust_all()
+    assert jmaker._failures_pending and tmaker._failures_pending
+    np.testing.assert_array_equal(tmaker.failure_mask.numpy(),
+                                  np.asarray(jmaker.failure_mask))
+    assert int(tmaker.failure_mask.sum()) > 0
+    for maker in (jmaker, tmaker):
+        maker.refind_from_failure_queue()
+    assert not jmaker._failures_pending and not tmaker._failures_pending
+    assert not bool(tmaker.failure_mask.any())
+    _assert_maps_equal(jmaker.map, tmaker.map,
+                       ("point_valid", "meas_valid", "never_retry"))
+
+
+def test_refind_all_kfs_spans_match_jax(monkeypatch):
+    """The scheduler's two spans over 20 keyframe slots, [0, 16) and the
+    tail [4, 20), which scans slots 4..15 again: the port calls
+    ``refind_in_kf`` only for keyframes with work, the JAX scan's
+    ``lax.cond`` runs the same ones, and a slot scanned again has none
+    left. (The atlases are empty, so every search fails and the result is
+    the never-retry marks: exact.)"""
+    tm, tcam = tsynth.ba_map(n_kfs=20, max_kfs=20, n_pts=96, seed=1,
+                             image_size=BA_SIZE, device="cpu")
+    jcam = atan.make_camera(*tsynth.BA_CAMERA)
+    valid = np.zeros(20, bool)
+    valid[[0, 2, 3, 5, 7, 9, 12, 14, 17, 19]] = True
+    tm.kf_valid = torch.from_numpy(valid)
+    mask2d = np.random.default_rng(2).uniform(size=(20, 96)) < 0.3
+    mask2d[[2, 12]] = False
+    jm = _to_jax(tm)
+    calls = []
+    refind = tmapmaker.refind_in_kf
+
+    def counted(m, k, *a, **kw):
+        calls.append(int(k))
+        return refind(m, k, *a, **kw)
+
+    monkeypatch.setattr(tmapmaker, "refind_in_kf", counted)
+    maker = tmapmaker.MapMaker(tm, tcam, BA_SIZE)
+    assert maker._span_ks == [range(0, 16), range(4, 20)]
+    for span in maker._span_ks:
+        ref = fj.as_numpy_tree(jm)
+        work = ref["kf_valid"] & np.any(
+            mask2d & ref["point_valid"] & ~ref["meas_valid"]
+            & ~ref["never_retry"], axis=-1)
+        want = [k for k in span if work[k]]
+        calls.clear()
+        jm, jn = mapmaker.refind_all_kfs(
+            jm, jnp.asarray(mask2d), jcam, BA_SIZE,
+            jnp.arange(span.start, span.stop))
+        tm, tn = tmapmaker.refind_all_kfs(tm, torch.from_numpy(mask2d), tcam,
+                                          BA_SIZE, span)
+        assert calls == want
+        assert int(tn) == int(jn)
+        _assert_maps_equal(jm, tm, ("meas_valid", "never_retry"))
+    assert calls == [17, 19]        # the tail re-scans 4..15 for nothing
+    assert int(tm.never_retry.sum()) > 0
+
+
+def test_phased_integration_matches_fused(scene):
+    """tests/test_mapmaker_units.py's check: the scheduler's five phases
+    (insert + re-find, then one epipolar level a pass), landed by
+    ``_drain_integrate``, give the fused program's map bit for bit."""
+    mt = {k: fj.tensor(v, "cpu") for k, v in scene["meas"].items()}
+    ff = fj.frame_features_from_numpy(fj.as_numpy_tree(scene["ff2"]), "cpu")
+    pose = fj.se3_from_numpy(fj.as_numpy_tree(scene["pose2"]), "cpu")
+    cam = fj.camera_from_numpy(fj.as_numpy_tree(scene["seq"].cam), "cpu")
+
+    def fresh():
+        return fj.map_state_from_numpy(fj.as_numpy_tree(scene["m"]), "cpu")
+
+    out_m, new_mask, slot_n = tmapmaker.integrate_keyframe_program(
+        fresh(), ff, pose, mt["point"], mt["pos"], mt["level"], mt["subpix"],
+        mt["valid"], torch.tensor(1.5), torch.tensor(0.1),
+        torch.zeros(P, dtype=torch.bool), cam, SIZE, WIGGLE, THIN)
+    maker = tmapmaker.MapMaker(fresh(), cam, SIZE)
+    maker.add_keyframe(ff, pose, mt, torch.tensor(1.5), torch.tensor(0.1))
+    maker._integrate_start()
+    n_phases = 1
+    while maker._integrate_job is not None:
+        maker._integrate_advance()
+        n_phases += 1
+    assert n_phases == 1 + len(tmapmaker.EPI_LEVEL_ORDER)
+    assert maker.n_kfs() == 2 and maker.queue_size() == 0
+    assert maker._drain_integrate(block=True) == int(slot_n[0])
+    assert maker._new_points_pending == (int(slot_n[1]) > 0)
+    assert torch.equal(maker.new_point_mask, new_mask)
+    for f in dataclasses.fields(out_m):
+        assert torch.equal(getattr(maker.map, f.name),
+                           getattr(out_m, f.name)), f.name
+
+
+# ---------------------------------------------------------------------------
+# The scheduler: the same add_keyframe + step() sequence in both packages
+# ---------------------------------------------------------------------------
+
+SCHED_KFS = 20          # keyframe slots: spans [0, 16) and [4, 20)
+SCHED_FRAMES = 8        # keyframes added through the queue
+SCHED_STEPS = 10        # step() passes after each add_keyframe
+SCHED_IDLE = 40         # passes after the last
+GC_POINTS = 5           # points given outlier counts GC must act on
+
+
+@pytest.fixture(scope="module")
+def sched_scene():
+    """An orbit wide enough that every new keyframe sees its nearest at a
+    baseline of ~0.1 (radius 0.6, sweep 1.6 over 10 frames): the JAX
+    package's float32 triangulation of the new points then errs by ~1e-4,
+    inside the BA bars (at 0.03 it errs by up to 3e-2, and the runs part).
+    The map: frame 0's candidates on the plane, keyframe 0 (fixed) with
+    their root measurements, and frame 9 as keyframe 1, fixed, measuring
+    every point (two fixed keyframes pin the scale). Keyframes 2..9 are
+    frames 1..8 at their true poses, with tracker measurements of a
+    seeded half of the points, 5% of them moved 6 px (outliers for BA's
+    failure queue); the first ``GC_POINTS`` points carry outlier counts
+    past ``bad_point_outlier_min``."""
+    seq = synth.SyntheticSequence(REF_PARAMS, image_size=SIZE,
+                                  n_frames=SCHED_FRAMES + 2, seed=7,
+                                  height=1.5, radius=0.6, sweep=1.6)
+    build = jax.jit(lambda x: keyframe.build_frame(
+        x, candidate_min_score=50.0))
+    m = _jax_map(seq, build(seq.frame(0)), SCHED_KFS)
+    far = SCHED_FRAMES + 1
+    pose_far = seq.pose(far)
+    m = map_state.insert_keyframe(m, 1, build(seq.frame(far)), pose_far, 1.5,
+                                  0.1, fixed=True)
+    p_cam = m.point_pos @ pose_far.R.T + pose_far.t
+    pix = atan.project(p_cam[:, :2] / p_cam[:, 2:3], seq.cam)
+    m = map_state.set_measurements(
+        m, 1, jnp.arange(P), pix, jnp.zeros(P, jnp.int32),
+        jnp.zeros(P, bool), jnp.full(P, map_state.SRC_REFIND, jnp.int32),
+        m.point_valid & (p_cam[:, 2] > 0.1))
+    m = m._replace(kf_fixed=m.kf_fixed.at[0].set(True),
+                   point_outlier=m.point_outlier.at[:GC_POINTS].set(30))
+    rng = np.random.default_rng(1)
+    kfs = []
+    for f in range(1, SCHED_FRAMES + 1):
+        pose = seq.pose(f)
+        p_cam = m.point_pos @ pose.R.T + pose.t
+        pix = np.array(atan.project(p_cam[:, :2] / p_cam[:, 2:3], seq.cam))
+        pick = rng.uniform(size=P) < 0.5
+        pix[rng.uniform(size=P) < 0.05] += 6.0
+        meas = dict(point=jnp.arange(P), pos=jnp.asarray(pix),
+                    level=m.point_src_level, subpix=m.point_valid,
+                    valid=m.point_valid & (p_cam[:, 2] > 0.1) & pick)
+        kfs.append((build(seq.frame(f)), pose, meas))
+    return seq, m, kfs
+
+
+def _run_scheduler(maker, kfs, to_port):
+    """add_keyframe, then ``SCHED_STEPS`` passes, for each keyframe, then
+    ``SCHED_IDLE`` passes; the step returns and the scheduler's state
+    after every pass, and the jobs started."""
+    jobs = {"local BA": 0, "global BA": 0, "span": 0, "failure queue": 0,
+            "GC": 0}
+    for name, job in (("_ba_start", None), ("_refind_advance", "span"),
+                      ("handle_bad_points", "GC")):
+        def wrapped(*a, _f=getattr(maker, name), _job=job, **kw):
+            if _job is None:
+                recent = kw["recent"] if "recent" in kw else a[3]
+                jobs["local BA" if recent else "global BA"] += 1
+            elif _job != "GC" or maker._map_dirty:
+                jobs[_job] += 1
+            return _f(*a, **kw)
+        setattr(maker, name, wrapped)
+    queue = maker.refind_from_failure_queue
+
+    def failure_queue(*a, **kw):
+        jobs["failure queue"] += int(maker.failure_mask.sum())
+        return queue(*a, **kw)
+
+    maker.refind_from_failure_queue = failure_queue
+    log, newest = [], 0
+
+    def step():
+        nonlocal newest
+        ret = maker.step(newest)
+        newest = newest if ret is None else ret
+        log.append((ret, maker.n_kfs(), maker.converged_recent,
+                    maker.converged_full, maker._failures_pending,
+                    maker._new_points_pending))
+
+    for ff, pose, meas in kfs:
+        if to_port:
+            maker.add_keyframe(
+                fj.frame_features_from_numpy(fj.as_numpy_tree(ff), "cpu"),
+                fj.se3_from_numpy(fj.as_numpy_tree(pose), "cpu"),
+                {k: fj.tensor(v, "cpu") for k, v in meas.items()},
+                torch.tensor(1.5), torch.tensor(0.1))
+        else:
+            maker.add_keyframe(ff, pose, meas, jnp.float32(1.5),
+                               jnp.float32(0.1))
+        for _ in range(SCHED_STEPS):
+            step()
+    for _ in range(SCHED_IDLE):
+        step()
+    return log, jobs
+
+
+def test_scheduler_matches_jax(sched_scene):
+    """Eight keyframes through ``add_keyframe`` and ``step()`` in both
+    MapMakers (deterministic mode, seed 0): the same step returns,
+    keyframe counts, convergence and pending flags after every pass, the
+    same jobs (local and global BA, span re-finds, the failure queue on
+    the same numpy draw, GC), the same point-valid, measurement and
+    never-retry masks, poses within 1e-4 and points within 1e-3 (the BA
+    bars of tests/test_torch_bundle.py)."""
+    seq, m, kfs = sched_scene
+    jmaker = mapmaker.MapMaker(m, seq.cam, SIZE, seed=0)
+    tmaker = tmapmaker.MapMaker(
+        fj.map_state_from_numpy(fj.as_numpy_tree(m), "cpu"),
+        fj.camera_from_numpy(fj.as_numpy_tree(seq.cam), "cpu"), SIZE, seed=0)
+    assert jmaker.deterministic and tmaker.deterministic
+    jmaker._n_points_hint = tmaker._n_points_hint = int(m.point_valid.sum())
+    jlog, jjobs = _run_scheduler(jmaker, kfs, False)
+    tlog, tjobs = _run_scheduler(tmaker, kfs, True)
+    assert tlog == jlog
+    assert tjobs == jjobs
+    assert tmaker.n_kfs() == SCHED_FRAMES + 2
+    assert all(n > 0 for n in tjobs.values()), tjobs
+    print(f"\nscheduler jobs: {tjobs}")
+    ref = fj.as_numpy_tree(jmaker.map)
+    _assert_maps_equal(jmaker.map, tmaker.map,
+                       ("point_valid", "meas_valid", "never_retry",
+                        "kf_valid"))
+    assert not ref["point_valid"][:GC_POINTS].any()      # GC trashed them
+    assert int(tmaker.map.point_valid.sum()) > int(m.point_valid.sum())
+    for f, tol in (("kf_R", 1e-4), ("kf_t", 1e-4), ("point_pos", 1e-3)):
+        np.testing.assert_allclose(getattr(tmaker.map, f).numpy(), ref[f],
+                                   rtol=0, atol=tol, err_msg=f)

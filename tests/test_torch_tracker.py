@@ -220,3 +220,69 @@ def test_five_frame_run_stays_good(scene):
         assert int(state.quality) == ttracker.QUALITY_GOOD, i
         assert rot_err < 0.01, (i, rot_err)
         assert float(torch.linalg.vector_norm(c_est - c_gt)) < 0.02, i
+
+
+def test_init_tracker_state_defaults_to_the_identity():
+    """Without a pose, the state sits at the identity on the device asked
+    for (the engine's start and reset); a given pose is kept as it is."""
+    t = ttracker.init_tracker_state(device="cpu", seed=3)
+    j = tracker.init_tracker_state()
+    for f in ("velocity", "msd_vel", "lost_frames", "quality",
+              "just_recovered", "depth_mean", "depth_sigma"):
+        np.testing.assert_array_equal(getattr(t, f).numpy(),
+                                      np.asarray(getattr(j, f)), err_msg=f)
+    np.testing.assert_array_equal(t.pose.R.numpy(), np.asarray(j.pose.R))
+    np.testing.assert_array_equal(t.pose.t.numpy(), np.asarray(j.pose.t))
+    pose = tse3.se3_exp(torch.tensor([0.1, 0.0, 0.2, 0.01, 0.0, 0.0]))
+    assert ttracker.init_tracker_state(pose).pose is pose
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            ttracker.init_tracker_state()
+
+
+def test_track_local_matches_jax(scene):
+    """TrackMapLocal: the map gets three more keyframes (frames 3, 5 and
+    7's poses) and a seeded measurement table; with ``track_local`` and
+    the 2 keyframes nearest the predicted pose, both packages restrict the
+    PVS to the same points (``local_point_mask``, exact) and track frame
+    2 alike (the bars of ``test_track_map_matches_jax``)."""
+    from ptam_cg_tpu.config import TrackerConfig
+    from ptam_cg_tpu_torch import config as tconfig
+    seq, cam, m, ff0 = scene["seq"], scene["cam"], scene["m"], scene["ff0"]
+    P, K = m.meas_valid.shape[1], m.meas_valid.shape[0]
+    frames = (0, 3, 5, 7)
+    meas = np.random.default_rng(4).uniform(size=(K, P)) < 0.4
+    m = m._replace(
+        kf_valid=jnp.ones(K, bool),
+        kf_R=jnp.stack([seq.pose(f).R for f in frames]),
+        kf_t=jnp.stack([seq.pose(f).t for f in frames]),
+        meas_valid=jnp.asarray(meas) & m.point_valid[None])
+    tm = fj.map_state_from_numpy(fj.as_numpy_tree(m), "cpu")
+    pose2 = fj.se3_from_numpy(fj.as_numpy_tree(seq.pose(2)), "cpu")
+    local = ttracker.local_point_mask(tm, pose2, 2)
+    np.testing.assert_array_equal(
+        local.numpy(), np.asarray(tracker.local_point_mask(m, seq.pose(2),
+                                                           2)))
+    assert 0 < int(local.sum()) < int(tm.point_valid.sum())
+
+    im = seq.frame(2)
+    cam_params = jnp.asarray(REF_PARAMS, jnp.float32)
+    state = tracker.init_tracker_state(seq.pose(1), seed=5)
+    jcfg = TrackerConfig(track_local=True, track_local_kfs=2)
+    jout = jax.jit(lambda s, m_, im_, ps: tracker.track_frame_from_image(
+        s, m_, im_, ps, cam, SIZE, cam_params, jcfg))(state, m, im,
+                                                      ff0.sbi_track)
+    _, k_frame = jax.random.split(state.key)
+    rc, rf = _uniforms(k_frame, P)
+    tout = ttracker.track_frame_from_image(
+        fj.tracker_state_from_numpy(fj.as_numpy_tree(state), "cpu"), tm,
+        fj.tensor(im, "cpu"),
+        fj.sbi_from_numpy(fj.as_numpy_tree(ff0.sbi_track), "cpu"),
+        scene["tcam"], SIZE, torch.tensor(REF_PARAMS),
+        tconfig.TrackerConfig(track_local=True, track_local_kfs=2),
+        rand_coarse=rc, rand_fine=rf)
+    _assert_same_tracking(jout.result, tout.result)
+    res = tout.result
+    found = res.meas_point[res.meas_valid]
+    assert len(found) > 30 and bool(local[found].all())
+    assert int(tout.state.quality) == int(jout.state.quality)
