@@ -1,5 +1,6 @@
 """Run the PyTorch port's tracking step, keyframe integration, bundle
-adjustment, stereo init and relocalization on one NVIDIA GPU.
+adjustment, stereo init, relocalization, the engine (with and without its
+mapping worker) and the dataset entry point on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -104,16 +105,38 @@ Phases, each fatal on failure:
    succeed, card = CPU, and the frame tracked from its pose is GOOD.
    Timed: ``trail_advance`` a frame, ``homography.compute``, the whole
    ``init_from_stereo`` with its BA-run count, and ``attempt_recovery``.
+11. the engine, ``SLAMEngine.process_frame``, on bench_engine.py's 240
+   frames at 640x480 (uint8 from the host): 11a deterministic, 11b card
+   against CPU, 11c the card's latency mode (frame latency, FPS, host
+   reads, busy share), 11d relocalization and the poisoned-map reset,
+   11e tests/test_slam_e2e.py's orbit at its pace, where integrations add
+   points, card against CPU;
+12. the engine with its mapping worker (``async_mapping=True``) on the
+   same frames in latency mode: the bars of tests/test_async_mapping.py
+   and the e2e's ATE, its latency, FPS, mapping passes, map copies (and
+   one copy's device time) and busy share beside 11c's, and the kernels'
+   launches by CUDA stream (K2's integration launches on the mapping
+   stream, the rest on the tracking thread's); 12b: 11e's orbit with the
+   worker (the map grows), a reset while a pass is in flight (the map
+   stays empty until the next init) and ``close()`` within 10 s;
+13. the dataset entry point: 11e's first 60 frames written as a TUM
+   dataset (``io/tum.py``), read by the native frame pump (each frame
+   equal to its file), and ``apps.run_tum`` with ``--native``, a settings
+   file, a console script, a checkpoint (equal to the final map), a map
+   render and AR frames; ``apps.run_synthetic --async-mapping``.
 The line before the last is a JSON summary of the kernels (numbers summed
-over a tracked frame's calls, K3's over a keyframe's); the last line is
-the JSON result. Times are medians of CUDA-event timings.
+over a tracked frame's calls, K3's over a keyframe's;
+``launches_by_stream_async``: phase 12's launches by CUDA stream); the
+last line is the JSON result. Times are medians of CUDA-event timings.
 """
 
 import dataclasses
+import faulthandler
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -190,7 +213,9 @@ GROW_SEQ = dict(n_frames=76, seed=5, height=1.5, radius=0.35, sweep=3.9)
 # CPU port on 1 against 8 threads (2.65e-5, 1.22e-4).
 GROW_ROT_TOL = 8e-5
 GROW_T_TOL = 4e-4
-ENG_PROFILE = 20     # 11c: the last frames, under the profiler
+# Phase 13: 11e's first frames, written as a TUM-layout dataset.
+DATASET_FRAMES = 60
+ENG_PROFILE = 20     # 11c, 12: the last frames, under the profiler
 ENG_SYNC = 10        # 11c: the frames before them, under sync debug mode
 ENG_CPU1 = 16        # 11b: frames the CPU runs on one thread (the spread)
 # 11b: card against CPU, each frame's rotation and translation over |t|
@@ -1047,10 +1072,12 @@ class HostDraws:
 
 class CallCounts:
     """Counts the calls of module functions while active (each patched
-    with a counting wrapper, restored on exit)."""
+    with a counting wrapper, restored on exit): ``n`` by function, and
+    ``mapping`` the calls made on the engine's mapping thread."""
 
     def __init__(self, targets):
         self.targets, self.n = targets, {name: 0 for _, name in targets}
+        self.mapping = dict.fromkeys(self.n, 0)
 
     def __enter__(self):
         self.saved = []
@@ -1059,6 +1086,11 @@ class CallCounts:
             self.saved.append((mod, name, fn))
 
             def wrapped(*a, _fn=fn, _name=name, **kw):
+                # No function runs on both threads at once: init runs the
+                # mapping jobs on the tracking thread while no mapping
+                # pass runs, so no count is lost.
+                if threading.current_thread().name == "mapping":
+                    self.mapping[_name] += 1
                 self.n[_name] += 1
                 return _fn(*a, **kw)
             setattr(mod, name, wrapped)
@@ -1186,11 +1218,26 @@ def engine_diffs(a, b, first, torch):
     return bad, d_R, d_t
 
 
+def latency_stats(infos, times):
+    """p50, p95 and max (ms) of the tracked frames' ``process_frame``
+    return times, keyframe frames apart (``n`` of them), and the keyframe
+    frames' (frame, ms)."""
+    tracked = [(k, times[k]) for k, i in enumerate(infos[:len(times)])
+               if i.stage == "TRACKING"]
+    steady = sorted(t * 1e3 for k, t in tracked if not infos[k].added_kf)
+    pct = lambda q: steady[min(len(steady) - 1, int(q * len(steady)))]  # noqa
+    return dict(p50=pct(0.5), p95=pct(0.95), max=steady[-1], n=len(steady),
+                kf_frames=[(k, round(t * 1e3, 1)) for k, t in tracked
+                           if infos[k].added_kf])
+
+
 def engine(torch, dev, card, kernels, reset_counts, counts):
     """Phase 11: ``SLAMEngine.process_frame`` on bench_engine.py's scene,
     deterministic (11a), card against CPU (11b), the card's latency mode
     (11c), relocalization and reset (11d); then a faster orbit on which
-    integrations add points, card against CPU (11e)."""
+    integrations add points, card against CPU (11e). Returns what phases
+    12-13 reuse: both orbits' frames and sequences, the engine factory,
+    ``run``, the launch-count targets and formula, and 11c's numbers."""
     import numpy as np
     from ptam_cg_tpu_torch.config import (CameraConfig, EngineConfig,
                                           MapMakerConfig)
@@ -1349,17 +1396,13 @@ def engine(torch, dev, card, kernels, reset_counts, counts):
     for name, n in launches.items():
         kernels[name]["launches"] += n
     busy_us = sum(t for _, t, _ in device_rows(prof))
-    tracked = [(k, times[k]) for k, i in enumerate(lat[:n_main])
-               if i.stage == "TRACKING"]
-    kf_frames = [(k, round(t * 1e3, 1)) for k, t in tracked
-                 if lat[k].added_kf]
-    steady = sorted(t * 1e3 for k, t in tracked if not lat[k].added_kf)
-    pct = lambda q: steady[min(len(steady) - 1, int(q * len(steady)))]  # noqa
+    c = latency_stats(lat, times)
+    c.update(fps=n_main / wall, busy=busy_us / 1e6 / prof_wall * 100)
     print(f"[11c] latency mode, frames 0..{n_main - 1}: tracked-frame latency "
           f"(host clock, process_frame's return, no sync) p50 "
-          f"{pct(0.5):.1f} ms, p95 {pct(0.95):.1f} ms, max "
-          f"{steady[-1]:.1f} ms over {len(steady)} frames; keyframe frames "
-          f"(frame, ms) {kf_frames}; {n_main / wall:.2f} FPS over all "
+          f"{c['p50']:.1f} ms, p95 {c['p95']:.1f} ms, max "
+          f"{c['max']:.1f} ms over {c['n']} frames; keyframe frames "
+          f"(frame, ms) {c['kf_frames']}; {n_main / wall:.2f} FPS over all "
           f"{n_main} frames ({wall:.1f} s, one sync at the end); mapping "
           f"passes that found the card busy {busy} of {passes}  [{card}]")
     print(f"[11c] host reads a tracked frame (sync debug mode), frames "
@@ -1488,9 +1531,318 @@ def engine(torch, dev, card, kernels, reset_counts, counts):
     check(not bad, "11e: card and CPU engines differ in outcome")
     check(d_R <= GROW_ROT_TOL and d_t <= GROW_T_TOL,
           "11e: card and CPU engine poses differ")
+    return dict(frames=frames, seq=seq, gframes=gframes, gseq=gseq,
+                make=make, run=run, targets=targets, expected=expected,
+                sync=c)
+
+
+def wait_for(cond, seconds=30.0):
+    deadline = time.perf_counter() + seconds
+    while time.perf_counter() < deadline and not cond():
+        time.sleep(0.05)
+    return cond()
+
+
+def async_outcome(infos, seq, torch, tag):
+    """Phase 12's bars (tests/test_async_mapping.py's and the e2e's ATE):
+    init succeeds, at least 80% of the tracked frames GOOD, at least 2
+    keyframes in the map, the ATE after Sim(3) alignment under 5% of the
+    trajectory's span. Returns the first tracked frame."""
+    from ptam_cg_tpu_torch.utils import evaluate
+    from ptam_cg_tpu_torch.utils.se3 import SE3
+    tracked = [(k, i) for k, i in enumerate(infos) if i.stage == "TRACKING"]
+    check(len(tracked) > 10, f"{tag}: init failed or too few tracked frames")
+    good = sum(i.quality == 2 for _, i in tracked)
+    est = evaluate.camera_centers(SE3(
+        torch.stack([i.pose.R for _, i in tracked]),
+        torch.stack([i.pose.t for _, i in tracked])))
+    gt = torch.stack([-(seq.pose(k).R.T @ seq.pose(k).t) for k, _ in tracked])
+    ate = evaluate.ate_rmse(est, gt)
+    span = float(torch.linalg.vector_norm(gt.max(0).values - gt.min(0).values))
+    print(f"[{tag}] init on frame {tracked[0][0]}; {good}/{len(tracked)} "
+          f"tracked frames GOOD; {sum(i.added_kf for i in infos)} keyframes "
+          f"added, {infos[-1].n_kfs} in the map, {infos[-1].n_points} points; "
+          f"ATE {ate:.3e}, span {span:.4f} "
+          f"({ate / max(span, 0.1) * 100:.3f}%)")
+    check(good >= 0.8 * len(tracked), f"{tag}: under 80% of frames GOOD")
+    check(infos[-1].n_kfs >= 2, f"{tag}: fewer than 2 keyframes")
+    check(ate < 0.05 * max(span, 0.1), f"{tag}: ATE {ate} over the bar")
+    return tracked[0][0]
+
+
+def async_engine(torch, dev, card, kernels, reset_counts, counts, mods, ph11):
+    """Phase 12: ``SLAMEngine(async_mapping=True)`` on phase 11's 240
+    frames in latency mode, beside 11c's synchronous numbers; 12b: on
+    11e's orbit, where integrations add points, then a reset while a
+    mapping pass is in flight, and ``close()``."""
+    from torch.profiler import ProfilerActivity, profile
+    from ptam_cg_tpu_torch.models import map_state as ms
+    from ptam_cg_tpu_torch.models import mapmaker
+    make, run, frames, seq = ph11["make"], ph11["run"], ph11["frames"], \
+        ph11["seq"]
+    W, H = SIZE
+
+    # ---- 12. bench_engine.py's frames with the mapping worker ----
+    eng = make(dev, async_mapping=True)
+    check(not eng.mapmaker.deterministic, "12: not in latency mode")
+    mm, passes = eng.mapmaker, [0, 0.0]
+    step = mm.step
+
+    def counted_step(*a, **kw):
+        # The worker's passes and their seconds on the host clock.
+        t = time.perf_counter()
+        try:
+            return step(*a, **kw)
+        finally:
+            passes[0] += 1
+            passes[1] += time.perf_counter() - t
+    mm.step = counted_step
+    # No mapping pass runs while the profiler starts or stops (below): a
+    # second thread launching kernels then can crash the profiler.
+    gate, mapping_pass = threading.Lock(), eng._mapping_pass
+
+    def gated_pass():
+        with gate:
+            return mapping_pass()
+    eng._mapping_pass = gated_pass
+    map_stream = eng._map_stream.cuda_stream
+    n_main = len(frames) - ENG_PROFILE
+    times = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with CallCounts(ph11["targets"] + [(ms, "copy_map")]) as calls:
+        infos = run(eng, frames[:n_main], times)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        with gate:
+            torch.cuda.synchronize()
+            prof.start()
+        tp = time.perf_counter()
+        infos += run(eng, frames[n_main:])
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - tp
+        with gate:
+            torch.cuda.synchronize()
+            prof.stop()
+        check(wait_for(lambda: not eng.mapmaker.kf_queue), "12: the worker "
+              "did not drain its keyframe queue")
+        t1 = time.perf_counter()
+        eng.close()
+        close_s = time.perf_counter() - t1
+        torch.cuda.synchronize()
+    launches = counts()
+    by_stream = {name: dict(mod.launches_by_stream)
+                 for name, mod in mods.items()}
+    want = ph11["expected"](calls.n)
+    m_calls = calls.mapping
+    on_mapping = {"fast10": 0, "shi_tomasi": 0, "gather_windows":
+                  2 * m_calls["refind_in_kf"]
+                  + 3 * m_calls["add_points_epipolar"]}
+    labels = {0: "legacy default (tracking)", map_stream: "mapping"}
+    named = {name: {labels.get(k, str(k)): v for k, v in d.items()}
+             for name, d in by_stream.items()}
+    print(f"[12] launches {launches}, expected {want}; by stream {named}; "
+          f"expected on the mapping stream {on_mapping}; mapping-thread "
+          f"calls {m_calls}")
+    check(launches == want, f"phase-12 launch counts {launches} differ "
+          f"from {want}")
+    check(on_mapping["gather_windows"] > 0, "12: the worker re-found or "
+          "added no point (no K2 launch on the mapping stream)")
+    for name, d in by_stream.items():
+        check(set(d) <= {0, map_stream}, f"12: {name} launched on a stream "
+              f"other than tracking's and mapping's: {d}")
+        check(d.get(map_stream, 0) == on_mapping[name],
+              f"12: {name}'s mapping-stream launches {d.get(map_stream, 0)} "
+              f"!= the worker's calls' {on_mapping[name]}")
+        check(d.get(0, 0) == launches[name] - on_mapping[name],
+              f"12: {name}'s launches on the legacy default stream differ")
+        kernels[name]["launches"] += launches[name]
+        kernels[name]["launches_by_stream_async"] = named[name]
+    busy_us = sum(t for _, t, _ in device_rows(prof))
+    a = latency_stats(infos, times)
+    a.update(fps=n_main / wall, busy=busy_us / 1e6 / prof_wall * 100)
+    m = eng.snapshot()
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 (getattr(m, f.name) for f in dataclasses.fields(m)))
+    copy_us, copy_kernels = device_us(lambda _: ms.copy_map(m), torch)
+    copy_ms = time_ms(lambda _: ms.copy_map(m), torch)
+    c = ph11["sync"]
+    print(f"[12] async, frames 0..{n_main - 1}, latency mode: tracked-frame "
+          f"latency (host clock, process_frame's return, no sync) p50 "
+          f"{a['p50']:.1f} ms (11c sync {c['p50']:.1f}), p95 "
+          f"{a['p95']:.1f} ms (11c {c['p95']:.1f}), max {a['max']:.1f} ms "
+          f"(11c {c['max']:.1f}) over {a['n']} frames; keyframe frames "
+          f"(frame, ms) {a['kf_frames']}; {a['fps']:.2f} FPS (11c "
+          f"{c['fps']:.2f}; one sync at the end); mapping passes "
+          f"{passes[0]} ({passes[1]:.1f} s in MapMaker.step on the host "
+          f"clock), map copies {calls.n['copy_map']}; busy "
+          f"{a['busy']:.1f}% of frames {n_main}..{len(frames) - 1} "
+          f"({busy_us / 1e3:.1f} ms of device time in "
+          f"{prof_wall * 1e3:.1f} ms; 11c {c['busy']:.1f}%); close() "
+          f"{close_s:.2f} s  [{card}]")
+    print(f"[12] map copy ({nbytes / 1e6:.2f} MB in "
+          f"{len(dataclasses.fields(m))} tensors): device "
+          f"{fmt_us(copy_us)} in {copy_kernels:.0f} kernels, CUDA events "
+          f"{copy_ms:.4f} ms, bound (read + write at the HBM rate) "
+          f"{2 * nbytes / HBM_BYTES_S * 1e6:.2f} us  [{card}]")
+    async_outcome(infos, seq, torch, "12")
+    check(close_s < 10.0, "12: close() did not join within 10 s")
+
+    # ---- 12b. 11e's orbit: integrations add points; a reset mid-pass ----
+    gframes, gseq = ph11["gframes"], ph11["gseq"]
+    eng = make(dev, cand_min=INIT_CAND_MIN, async_mapping=True)
+    jobs = dict.fromkeys(MAPMAKER_JOBS, 0)
+    watch_mapmaker(eng.mapmaker, jobs)
+    infos = run(eng, gframes)
+    check(wait_for(lambda: not eng.mapmaker.kf_queue), "12b: the worker did "
+          "not drain its keyframe queue")
+    first = async_outcome(infos, gseq, torch, "12b")
+    n_init = infos[first].n_points
+    n_most = max(i.n_points for i in infos)
+    print(f"[12b] {W}x{H}, {len(gframes)} frames: init map {n_init} points, "
+          f"at most {n_most} later; MapMaker jobs {jobs}")
+    check(jobs["points integrated"] > 0 and n_most > n_init,
+          "12b: the map did not grow beyond the init map")
+    mm = eng.mapmaker
+    entered, release, left = (threading.Event() for _ in range(3))
+    step = mm.step
+
+    def blocked_step(*a, **kw):
+        entered.set()
+        release.wait(60.0)
+        try:
+            return step(*a, **kw)
+        finally:
+            left.set()
+    mm.step = blocked_step
+    eng.process_frame(gframes[-1])
+    check(entered.wait(60.0), "12b: no mapping pass started")
+    eng.process_frame(gframes[-2])          # a delta for the next pass
+    eng.reset()
+    pending = len(eng._pending_deltas)
+    release.set()
+    check(left.wait(60.0), "12b: the blocked pass did not end")
+    time.sleep(0.5)
+    m = eng.snapshot()
+    empty = (int(m.point_valid.sum()), int(m.point_inlier.abs().sum()),
+             int(m.point_outlier.abs().sum()), eng.mapmaker is not mm)
+    again = []
+    for im in gframes[:12]:
+        again.append(eng.process_frame(im))
+        if again[-1].stage == "TRACKING":
+            break
+    t1 = time.perf_counter()
+    eng.close()
+    close_s = time.perf_counter() - t1
+    print(f"[12b] reset during a pass in flight: pending deltas after it "
+          f"{pending}; map after the pass (points, |inliers|, |outliers|, a "
+          f"new MapMaker) {empty}; (stage, points) until init "
+          f"{[(i.stage, i.n_points) for i in again]}; close() "
+          f"{close_s:.2f} s  [{card}]")
+    check(pending == 0 and empty == (0, 0, 0, True),
+          "12b: the reset left old map state or deltas")
+    check(again[-1].stage == "TRACKING"
+          and all(i.n_points == 0 and i.n_kfs == 0 for i in again[:-1]),
+          "12b: the map was not empty until the next init")
+    check(close_s < 10.0, "12b: close() did not join within 10 s")
+
+
+def read_ppm(path):
+    import numpy as np
+    raw = open(path, "rb").read()
+    _, w, h, _ = raw.split(maxsplit=4)[:4]
+    w, h = int(w), int(h)
+    return np.frombuffer(raw[len(raw) - w * h * 3:], np.uint8).reshape(
+        h, w, 3)
+
+
+def dataset_entry(torch, card, ph11):
+    """Phase 13: ``apps.run_tum`` on a TUM-layout dataset of 11e's first
+    frames through the native frame pump, with a settings file, a console
+    script, a checkpoint, a map render and AR frames; then
+    ``apps.run_synthetic`` with the mapping worker."""
+    import os
+    import tempfile
+
+    import numpy as np
+    from ptam_cg_tpu_torch import native
+    from ptam_cg_tpu_torch.apps import run_synthetic, run_tum
+    from ptam_cg_tpu_torch.io import checkpoint, tum
+    gframes, gseq = ph11["gframes"], ph11["gseq"]
+    n = DATASET_FRAMES
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = os.path.join(tmp, "ds")
+        tum.write_synthetic_dataset(ds, gframes[:n],
+                                    poses=[gseq.pose(i) for i in range(n)])
+        with native.NativeFramePump(ds, loop=False) as pump:
+            bad = [i for i in range(n) if not np.array_equal(
+                pump.next_frame()[1],
+                np.load(os.path.join(ds, "rgb", f"{i:06d}.npy")))]
+        print(f"[13] native frame pump: {n} frames, differing from np.load "
+              f"{bad}")
+        check(not bad, "13: the native pump's frames differ from the files")
+        cfg = os.path.join(tmp, "settings.cfg")
+        with open(cfg, "w") as f:
+            f.write(f"Camera.Parameters = [ {' '.join(map(str, REF_PARAMS))} "
+                    f"]\nMapMaker.CandidateMinShiTomasiScore = "
+                    f"{INIT_CAND_MIN}\n")
+        mid, ck = os.path.join(tmp, "mid.npz"), os.path.join(tmp, "map.npz")
+        cmds = os.path.join(tmp, "commands.txt")
+        with open(cmds, "w") as f:
+            f.write(f"@10 Bundle.MaxIterations=10\n@20 SaveMap {mid}\n"
+                    f"@30 ShowInfo\n")
+        ppm, ar_dir = os.path.join(tmp, "map.ppm"), os.path.join(tmp, "ar")
+        t0 = time.perf_counter()
+        out = run_tum.main([ds, "--native", "--settings", cfg, "--commands",
+                            cmds, "--checkpoint", ck, "--map", ppm, "--ar",
+                            ar_dir])
+        secs = time.perf_counter() - t0
+        eng = out["engine"]
+        final = eng.snapshot()
+        m, _ = checkpoint.load_map(ck)
+        differ = [f.name for f in dataclasses.fields(m)
+                  if not torch.equal(getattr(m, f.name),
+                                     getattr(final, f.name))]
+        ar_files = sorted(os.listdir(ar_dir))
+        ar_std = [float(read_ppm(os.path.join(ar_dir, x)).std())
+                  for x in ar_files]
+        render = read_ppm(ppm)
+        drawn = int((render != 25).any(-1).sum())
+        tracked = [i for i in out["infos"] if i.stage == "TRACKING"]
+        print(f"[13] run_tum on {len(out['infos'])} frames in {secs:.1f} s: "
+              f"{len(tracked)} tracked, {sum(i.quality == 2 for i in tracked)} "
+              f"GOOD; ATE {out['ate']:.3e}, span {out['span']:.4f}; console "
+              f"{out['console']}; checkpoint fields differing from the final "
+              f"map {differ}; AR frames {len(ar_files)} (pixel std "
+              f"{[round(x, 1) for x in ar_std]}); map render {drawn} pixels "
+              f"drawn  [{card}]")
+        check(out["ate"] is not None
+              and out["ate"] < 0.05 * max(out["span"], 0.1),
+              "13: run_tum's ATE over the bar")
+        check([f for f, _ in out["console"]] == [10, 20, 30]
+              and eng.mapmaker.ba_cfg.max_iterations == 10
+              and os.path.isfile(mid)
+              and out["console"][2][1].startswith("stage=TRACKING"),
+              "13: a console line did not run at its frame")
+        check(not differ, "13: the checkpoint differs from the final map")
+        check(ar_files and min(ar_std) > 10.0, "13: AR frames missing or "
+              "blank")
+        check(drawn > 100, "13: the map render is blank")
+    t0 = time.perf_counter()
+    syn = run_synthetic.main(["--async-mapping", "--frames", "40", "--size",
+                              f"{SIZE[0]}x{SIZE[1]}"])
+    print(f"[13] run_synthetic --async-mapping at {SIZE[0]}x{SIZE[1]}, 40 "
+          f"frames: {time.perf_counter() - t0:.1f} s, ATE {syn['ate']:.3e}, "
+          f"span {syn['span']:.4f}  [{card}]")
+    check(syn["ate"] < 0.05 * max(syn["span"], 0.1),
+          "13: run_synthetic's ATE over the bar")
 
 
 def main():
+    t_script = time.perf_counter()
+    faulthandler.enable()       # a crash prints every thread's traceback
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -1518,6 +1870,7 @@ def main():
     def reset_launch_counts():
         for mod in mods.values():
             mod.launches = 0
+            mod.launches_by_stream.clear()
 
     def launch_counts():
         return {name: mod.launches for name, mod in mods.items()}
@@ -1551,7 +1904,8 @@ def main():
                     bound_ms=0.0, bound_by="bytes",
                     library_ms=0.0 if library else None, device_us=0.0,
                     bound_us=0.0, launches_per_frame=per_frame,
-                    launches_per_keyframe=per_keyframe)
+                    launches_per_keyframe=per_keyframe,
+                    launches_by_stream_async={})
 
     # Launches on the tracking path (per frame) and on the keyframe path
     # (build_frame + integrate_keyframe_program); phases 4 and 6 hold the
@@ -2157,10 +2511,20 @@ def main():
     bootstrap(torch, dev, card, kernels, reset_launch_counts, launch_counts)
 
     # ---- 11. the engine: process_frame end to end ----
-    engine(torch, dev, card, kernels, reset_launch_counts, launch_counts)
+    ph11 = engine(torch, dev, card, kernels, reset_launch_counts,
+                  launch_counts)
+
+    # ---- 12. the engine with its mapping worker ----
+    async_engine(torch, dev, card, kernels, reset_launch_counts,
+                 launch_counts, mods, ph11)
+
+    # ---- 13. the dataset entry point ----
+    dataset_entry(torch, card, ph11)
 
     check(not any(k == "jax" or k.startswith("jax.") for k in sys.modules),
           "jax was imported")
+    print(f"[end] the whole script: {time.perf_counter() - t_script:.1f} s "
+          f"[{card}]")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,11 @@
 """PyTorch + CUDA port of ``ptam_cg_tpu``: tracking (``models.tracker``),
 keyframe integration and the mapping jobs (``models.keyframe``,
 ``models.mapmaker``), bundle adjustment (``models.bundle``), stereo init
-(``models.homography``, ``models.initializer``) and relocalization
-(``models.relocalizer``).
+(``models.homography``, ``models.initializer``), relocalization
+(``models.relocalizer``), the engine with or without its mapping thread
+(``models.engine``), and the dataset entry point around it (``io.tum``,
+``io.settings``, ``native``, ``io.checkpoint``, ``io.commands``, ``viz``;
+``python -m ptam_cg_tpu_torch.apps.run_tum``).
 
 The layout mirrors the JAX package module by module; ``kernels/`` and
 ``csrc/`` hold the hand-written Hopper kernels and their plain PyTorch

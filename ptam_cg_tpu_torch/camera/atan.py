@@ -1,9 +1,9 @@
 """ATAN (FOV) camera model on tensors (port of ``ptam_cg_tpu.camera.atan``).
 
 Normalized parameters [fx fy cx cy w] scale with the image size exactly
-as the reference does, including the -0.5 pixel centre offset. The
-calibrator's UFB fields and ``param_derivs`` are not part of the
-tracking slice and are not ported yet.
+as the reference does, including the -0.5 pixel centre offset. The unit
+frame buffer (UFB) projections serve the AR compositor (``viz/ar.py``);
+``param_derivs`` belongs to the calibrator and is not ported yet.
 """
 
 from __future__ import annotations
@@ -35,6 +35,10 @@ class Camera:
     largest_radius: Tensor
     max_r: Tensor           # 1.5 * largest_radius
     one_pixel_dist: Tensor  # z=1 distance of one pixel
+    implane_tl: Tensor      # (2,) z=1 bounds of the image's corners
+    implane_br: Tensor      # (2,)
+    ufb_linear_focal: Tensor   # (2,) linear z=1 -> UFB scale
+    ufb_linear_center: Tensor  # (2,)
 
 
 def _rtrans_factor(r: Tensor, cam: Camera) -> Tensor:
@@ -77,7 +81,9 @@ def make_camera(params, image_size: Tuple[int, int],
         inv_focal=1.0 / focal, w=w, two_tan=two_tan,
         one_over_2tan=one_over_2tan, winv=torch.where(on, 1.0 / safe_w, zero),
         distortion_enabled=torch.where(on, one, zero),
-        largest_radius=zero, max_r=zero + float("inf"), one_pixel_dist=zero)
+        largest_radius=zero, max_r=zero + float("inf"), one_pixel_dist=zero,
+        implane_tl=p.new_zeros(2), implane_br=p.new_ones(2),
+        ufb_linear_focal=p.new_ones(2), ufb_linear_center=p.new_zeros(2))
     v2 = torch.stack([torch.maximum(p[2], 1.0 - p[2]) / p[0],
                       torch.maximum(p[3], 1.0 - p[3]) / p[1]])
     largest = _invrtrans(torch.linalg.vector_norm(v2), cam)
@@ -86,6 +92,14 @@ def make_camera(params, image_size: Tuple[int, int],
     c0 = unproject(size / 2.0, cam)
     c1 = unproject(size / 2.0 + 1.0, cam)
     cam.one_pixel_dist = torch.linalg.vector_norm(c0 - c1) / math.sqrt(2.0)
+    # The UFB's linear bounds (src/ATANCamera.cc:77-103).
+    corners = unproject(torch.tensor(
+        [[-0.5, -0.5], [W - 0.5, -0.5], [W - 0.5, H - 0.5], [-0.5, H - 0.5]],
+        dtype=torch.float32, device=dev), cam)
+    cam.implane_tl = corners.min(0).values
+    cam.implane_br = corners.max(0).values
+    cam.ufb_linear_focal = 1.0 / (cam.implane_br - cam.implane_tl)
+    cam.ufb_linear_center = -cam.implane_tl * cam.ufb_linear_focal
     return cam
 
 
@@ -136,3 +150,33 @@ def project_derivs(cam_xy: Tensor, cam: Camera) -> Tensor:
     j11 = fy * (frac_dy * y + factor)
     return torch.stack([torch.stack([j00, j01], dim=-1),
                         torch.stack([j10, j11], dim=-1)], dim=-2)
+
+
+def ufb_project(cam_xy: Tensor, cam: Camera) -> Tensor:
+    """z=1-plane coords -> unit frame buffer coords
+    (src/ATANCamera.cc:254-267)."""
+    r = torch.linalg.vector_norm(cam_xy, dim=-1)
+    dist = _rtrans_factor(r, cam)[..., None] * cam_xy
+    return cam.params[2:4] + cam.params[:2] * dist
+
+
+def ufb_unproject(ufb: Tensor, cam: Camera) -> Tensor:
+    """Unit frame buffer coords -> z=1-plane coords
+    (src/ATANCamera.cc:269-284)."""
+    dist = (ufb - cam.params[2:4]) / cam.params[:2]
+    dist_r = torch.linalg.vector_norm(dist, dim=-1)
+    r = _invrtrans(dist_r, cam)
+    factor = torch.where(
+        dist_r > 0.01,
+        r / torch.where(dist_r <= 0.01, torch.ones_like(dist_r), dist_r),
+        torch.ones_like(dist_r))
+    return factor[..., None] * dist
+
+
+def ufb_linear_project(cam_xy: Tensor, cam: Camera) -> Tensor:
+    """The undistorted UFB projection (ATANCamera.h's UFBLinear*)."""
+    return cam_xy * cam.ufb_linear_focal + cam.ufb_linear_center
+
+
+def ufb_linear_unproject(ufb: Tensor, cam: Camera) -> Tensor:
+    return (ufb - cam.ufb_linear_center) / cam.ufb_linear_focal

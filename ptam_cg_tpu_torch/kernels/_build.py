@@ -27,6 +27,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Tuple
@@ -125,3 +126,18 @@ def stream_handle(t: torch.Tensor) -> int:
     about 4.5 us of host time a launch on the host of an H100 80GB HBM3
     (chip_smoke.py phase 2b)."""
     return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(module, stream: int) -> None:
+    """Add one launch on ``stream`` (a raw handle, 0 for the legacy default
+    stream) to a wrapper module's ``launches`` and ``launches_by_stream``.
+    Under a lock: the engine's tracking thread and its mapping worker
+    launch the same kernels at once, and ``+=`` on a module global is a
+    read-modify-write."""
+    with _COUNT_LOCK:
+        module.launches += 1
+        module.launches_by_stream[stream] = (
+            module.launches_by_stream.get(stream, 0) + 1)

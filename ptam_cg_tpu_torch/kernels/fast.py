@@ -18,6 +18,7 @@ of each level.
 from __future__ import annotations
 
 import ctypes
+import sys
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -37,6 +38,9 @@ CIRCLE = (
 
 #: Kernel launches made by ``fast_atlas`` in this process.
 launches = 0
+#: The same launches by CUDA stream (raw handle; 0 is the legacy default
+#: stream), counted with ``launches`` by ``_build.count_launch``.
+launches_by_stream: dict = {}
 
 
 def fast_score_map_plain(im: Tensor, threshold: float):
@@ -134,12 +138,12 @@ def fast_atlas(atlas: Tensor, thresholds: Sequence[float], *,
         sc = torch.empty((Ha, Wa), dtype=torch.float32, device=atlas.device)
         cnt = torch.zeros(n, dtype=torch.int32, device=atlas.device)
     fn = _lib()
-    global launches
-    launches += 1
+    stream = _build.stream_handle(atlas)
+    _build.count_launch(sys.modules[__name__], stream)
     _build.check(fn(atlas.data_ptr(), Ha, Wa,
                     (ctypes.c_int * len(flat))(*flat),
                     (ctypes.c_float * n)(*[float(t) for t in thresholds]),
                     mask.data_ptr(), 0 if sc is None else sc.data_ptr(),
                     0 if cnt is None else cnt.data_ptr(),
-                    _build.stream_handle(atlas)), "fast_atlas")
+                    stream), "fast_atlas")
     return mask, sc, cnt

@@ -19,6 +19,7 @@ are exact copies of float32 images and bool / uint8 masks.
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import torch
 
@@ -29,6 +30,9 @@ Tensor = torch.Tensor
 #: Kernel launches made by ``gather_windows`` and ``gather_window_pair``
 #: in this process.
 launches = 0
+#: The same launches by CUDA stream (raw handle; 0 is the legacy default
+#: stream), counted with ``launches`` by ``_build.count_launch``.
+launches_by_stream: dict = {}
 
 
 def gather_windows_plain(atlas: Tensor, oy: Tensor, ox: Tensor, D: int,
@@ -124,10 +128,10 @@ def gather_windows(atlas: Tensor, oy: Tensor, ox: Tensor, D: int) -> Tensor:
     if N == 0:
         return out
     fn = _entry(_ENTRIES[atlas.dtype])
-    global launches
-    launches += 1
+    stream = _build.stream_handle(atlas)
+    _build.count_launch(sys.modules[__name__], stream)
     _build.check(fn(atlas.data_ptr(), Ha, Wa, py, px, sy, sx, idx64, N, D,
-                    out.data_ptr(), _build.stream_handle(atlas)),
+                    out.data_ptr(), stream),
                  "gather_windows")
     return out
 
@@ -155,10 +159,10 @@ def gather_window_pair(atlas: Tensor, mask: Tensor, oy: Tensor, ox: Tensor,
     if N == 0:
         return out, mout
     fn = _entry("gather_window_pair")
-    global launches
-    launches += 1
+    stream = _build.stream_handle(atlas)
+    _build.count_launch(sys.modules[__name__], stream)
     _build.check(fn(atlas.data_ptr(), mask.data_ptr(), Ha, Wa, py, px, sy,
                     sx, idx64, N, D, offset, M, out.data_ptr(),
-                    mout.data_ptr(), _build.stream_handle(atlas)),
+                    mout.data_ptr(), stream),
                  "gather_window_pair")
     return out, mout

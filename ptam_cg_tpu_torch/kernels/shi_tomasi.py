@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import sys
 from typing import Sequence
 
 import torch
@@ -35,6 +36,9 @@ HALF_BOX = 3
 
 #: Kernel launches made by ``shi_tomasi_atlas`` in this process.
 launches = 0
+#: The same launches by CUDA stream (raw handle; 0 is the legacy default
+#: stream), counted with ``launches`` by ``_build.count_launch``.
+launches_by_stream: dict = {}
 
 
 def box_sum(im: Tensor, radius: int) -> Tensor:
@@ -127,8 +131,8 @@ def shi_tomasi_atlas(atlas: Tensor, defines: Sequence[str] = ()) -> Tensor:
                          f"unaligned")
     out = torch.empty_like(atlas)
     fn = _lib(defines)
-    global launches
-    launches += 1
+    stream = _build.stream_handle(atlas)
+    _build.count_launch(sys.modules[__name__], stream)
     _build.check(fn(atlas.data_ptr(), Ha, Wa, rects, out.data_ptr(),
-                    _build.stream_handle(atlas)), "shi_tomasi_atlas")
+                    stream), "shi_tomasi_atlas")
     return out

@@ -1,10 +1,10 @@
 """SLAMEngine: the frame loop (port of ``ptam_cg_tpu.models.engine``).
 
 The reference's System frame loop and the Tracker's state machine
-(src/System.cc:54-110, src/Tracker.cc:86-307), run synchronously: each
-frame goes through one stage, then through one pass of the mapping
-scheduler (``MapMaker.step``), whose queued keyframe aborts a long BA run
-between chunks as the reference's abort flag does.
+(src/System.cc:54-110, src/Tracker.cc:86-307): each frame goes through
+one stage, then (by default on the same thread) through one pass of the
+mapping scheduler (``MapMaker.step``), whose queued keyframe aborts a
+long BA run between chunks as the reference's abort flag does.
 
 - NOT_STARTED: on an init request (``request_init``, or at once with
   ``auto_init_frames``) the frame's level-0 candidates start trails.
@@ -23,13 +23,29 @@ between chunks as the reference's abort flag does.
   ask for one. A BA failure (``MapMaker.reset_requested``) ditches the
   map.
 
+``async_mapping=True`` runs the mapping passes on a worker thread, the
+reference's second thread (include/MapMaker.h:37-38), as the JAX engine
+restores it (engine.py:227-268): tracking goes on against the last
+published map while a pass runs. The port writes a map in place
+(``map_state.insert_keyframe``), so each pass starts from
+``map_state.copy_map`` of the published map, adds the tracker's pending
+inlier/outlier deltas to the copy, runs ``MapMaker.step`` on it and
+publishes it; no pass writes a map that tracking may read. On the card
+the worker issues its work on its own CUDA stream. Each hand-off between
+the threads (the deltas, a queued keyframe, the map that init made, a
+published map) makes the consuming stream wait on an event recorded
+after the producer's work, and ``record_stream`` keeps the caching
+allocator from reusing a tensor's memory while the other stream may
+still read it. Unlike the JAX engine, a reset discards the publication
+of a pass in flight and the pending deltas (a generation counter), and
+an exception in the worker stops it and is raised by the next
+``process_frame`` or by ``close()``, which joins the worker.
+
 Not ported, on purpose: ``decision_interval``, the readiness-gated
 decision reads, the ``_inflight`` drain and the ``_wiggle_dev`` cache work
 around a networked TPU, where every blocking read costs ~20 ms; on a
-local card one read a frame is the design. ``async_mapping=True`` raises:
-the port writes the map in place (``map_state.insert_keyframe``), so a
-mapping thread needs a copy or a double-buffered map (a later slice).
-``mesh`` (point-sharded global BA) is not a parameter.
+local card one read a frame is the design. ``mesh`` (point-sharded
+global BA) is not a parameter.
 
 Draws are an input (``Draws``): the engine takes each random draw from one
 object, so a parity test can hand in JAX's.
@@ -37,8 +53,10 @@ object, so a parity test can hand in JAX's.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -53,6 +71,7 @@ from ptam_cg_tpu_torch.models import mapmaker as mmlib
 from ptam_cg_tpu_torch.models import relocalizer as reloclib
 from ptam_cg_tpu_torch.models import tracker as trklib
 from ptam_cg_tpu_torch.utils import se3 as se3lib
+from ptam_cg_tpu_torch.utils import tree
 from ptam_cg_tpu_torch.utils.se3 import SE3
 
 Tensor = torch.Tensor
@@ -130,7 +149,9 @@ class SLAMEngine:
     BA chunks fixed-size, so a replay gives the same map whatever the
     timing; None picks it on the CPU and latency mode on the card
     (``MapMaker``). ``draws``: the source of every random draw (default
-    ``Draws(seed, device)``).
+    ``Draws(seed, device)``). ``async_mapping``: run the mapping passes
+    on a worker thread (the module's docstring); call ``close()`` when
+    done, before the interpreter exits.
     """
 
     def __init__(self, cfg: EngineConfig = EngineConfig(), image_size=None,
@@ -138,10 +159,6 @@ class SLAMEngine:
                  auto_init_frames: int | None = 6,
                  deterministic: bool | None = None, device="cuda",
                  draws=None, async_mapping: bool = False):
-        if async_mapping:
-            raise NotImplementedError(
-                "async_mapping is not ported: the map is written in place, "
-                "so a mapping thread needs a double-buffered map")
         trklib.validate_config(cfg.tracker)
         if cfg.frontend.atlas_bf16:
             raise NotImplementedError("FrontendConfig.atlas_bf16 is not ported")
@@ -162,7 +179,27 @@ class SLAMEngine:
         self.frame_idx = 0
         self.prev_features = None
         self._trail_start_idx = None
+        # The mapping worker (async_mapping): everything it shares with
+        # tracking (the published map and its event, the pending deltas,
+        # the MapMaker, newest_kf, the generation) changes under _map_lock.
+        self.async_mapping = async_mapping
+        self._map_lock = threading.Lock()
+        self._generation = 0
+        self._pending_deltas = []
+        self._map_stream = (torch.cuda.Stream(self.device)
+                            if async_mapping and self.device.type == "cuda"
+                            else None)
+        self._worker_error = None
+        self._error_raised = False
+        self._closed = False
         self._new_map()
+        self._stop_mapping = threading.Event()
+        self._mapping_wake = threading.Event()
+        self._map_thread = None
+        if async_mapping:
+            self._map_thread = threading.Thread(
+                target=self._mapping_worker, name="mapping", daemon=True)
+            self._map_thread.start()
 
     def _new_map(self):
         """An empty map, a new MapMaker and a new tracker state."""
@@ -186,16 +223,130 @@ class SLAMEngine:
         self._last_quality = trklib.QUALITY_GOOD
         self._last_n_found = 0
         self._init_requested = self.auto_init_frames is not None
+        #: The worker runs passes only on a map that init has made.
+        self._mapping_on = False
+        #: The event after the published map's writes on the mapping
+        #: stream, and the last one the tracking stream waited on.
+        self._map_event = None
+        self._adopted_event = None
 
     def request_init(self):
         """The reference's spacebar (src/Tracker.cc:311-347)."""
         self._init_requested = True
 
     def reset(self):
-        """Full reset (Tracker::Reset and the MapMaker's reset)."""
-        self._new_map()
+        """Full reset (Tracker::Reset and the MapMaker's reset). With a
+        mapping worker, a pass in flight publishes nothing and the pending
+        deltas are dropped."""
+        with self._map_lock:
+            self._generation += 1
+            self._pending_deltas = []
+            self._new_map()
         self.draws.reset_mapmaker()
         self.draws.rekey_tracker()
+
+    # -- the mapping worker (async_mapping) ---------------------------------
+    def _mapping_worker(self):
+        """The mapping thread (MapMaker::run, src/MapMaker.cc:57-114): a
+        pass each time tracking wakes it, on the mapping stream on the
+        card. An exception ends the thread and is kept for the tracking
+        thread to raise."""
+        with contextlib.ExitStack() as stack:
+            if self._map_stream is not None:
+                stack.enter_context(torch.cuda.stream(self._map_stream))
+            while not self._stop_mapping.is_set():
+                if not self._mapping_wake.wait(timeout=0.05):
+                    continue
+                self._mapping_wake.clear()
+                try:
+                    self._mapping_pass()
+                except Exception as e:   # raised again by the engine
+                    self._worker_error = e
+                    return
+
+    def _mapping_pass(self):
+        """One pass: copy the published map, add the pending deltas, run
+        ``MapMaker.step`` on the copy, publish it unless a reset came
+        meanwhile (engine.py:252-268 without its reset race)."""
+        with self._map_lock:
+            if not self._mapping_on:
+                return
+            gen, mm, newest = self._generation, self.mapmaker, self.newest_kf
+            published, deltas = self.map, self._pending_deltas
+            self._pending_deltas = []
+        m = ms.copy_map(published)
+        for inl, outl in deltas:
+            m.point_inlier += inl
+            m.point_outlier += outl
+        mm.map = m
+        slot = mm.step(newest)
+        event = None
+        if self._map_stream is not None:
+            event = torch.cuda.Event()
+            event.record(self._map_stream)
+        with self._map_lock:
+            if gen != self._generation:
+                return
+            self.map, self._map_event = mm.map, event
+            if slot is not None:
+                self.newest_kf = slot
+
+    def _hand_over(self, obj):
+        """Tensors the tracking thread made, for the mapping stream: it
+        waits for the current stream's work so far, and the allocator
+        keeps their memory until the mapping stream's use has run."""
+        if self._map_stream is None:
+            return
+        event = torch.cuda.Event()
+        event.record()
+        self._map_stream.wait_event(event)
+        for t in tree.tensors(obj):
+            t.record_stream(self._map_stream)
+
+    def snapshot(self) -> ms.MapState:
+        """The map tracking reads now: with a worker, the last published
+        one, which the current stream waits for (and keeps alive for)
+        once. Read the map through it, not through ``map``, from the
+        tracking thread (a checkpoint, a render)."""
+        if not self.async_mapping:
+            return self.map
+        with self._map_lock:
+            m, event = self.map, self._map_event
+        if event is not None and event is not self._adopted_event:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            for t in tree.tensors(m):
+                t.record_stream(stream)
+            self._adopted_event = event
+        return m
+
+    def _raise_worker_error(self):
+        err = self._worker_error
+        if err is not None:
+            self._error_raised = True
+            raise err
+
+    def close(self):
+        """Stop and join the mapping worker (within 10 s); raise its
+        exception if no ``process_frame`` has. A synchronous engine has
+        nothing to stop."""
+        self._closed = True
+        thread, self._map_thread = self._map_thread, None
+        if thread is not None:
+            self._stop_mapping.set()
+            self._mapping_wake.set()
+            thread.join(timeout=10.0)
+            if thread.is_alive():
+                raise RuntimeError("the mapping worker did not stop "
+                                   "within 10 s")
+        if not self._error_raised:
+            self._raise_worker_error()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:   # nothing can be raised from a finalizer
+            pass
 
     def _build(self, im: Tensor) -> kflib.FrameFeatures:
         return kflib.build_frame(
@@ -208,12 +359,9 @@ class SLAMEngine:
         in its own dtype, and cast there."""
         if not isinstance(im, Tensor):
             im = torch.from_numpy(np.ascontiguousarray(im))
-        if im.device != self.device:
-            if self.device.type == "cuda":
-                im = im.pin_memory().to(self.device, non_blocking=True)
-            else:
-                im = im.to(self.device)
-        return im.to(torch.float32)
+        if im.device.type == "cpu" and self.device.type == "cuda":
+            im = im.pin_memory().to(self.device, non_blocking=True)
+        return im.to(self.device, torch.float32)
 
     def _read_info(self, info: Tensor):
         """The one host read of a tracked frame's decision scalars."""
@@ -227,6 +375,10 @@ class SLAMEngine:
     def process_frame(self, im) -> FrameInfo:
         """One frame (System::UpdateFrame -> Tracker::TrackFrame): an (H, W)
         uint8 or float32 image, on the host or on the device."""
+        if self.async_mapping:
+            self._raise_worker_error()
+            if self._closed:
+                raise RuntimeError("process_frame: the engine is closed")
         im = self._to_device(im)
         cfg = self.cfg
         features = None
@@ -311,6 +463,11 @@ class SLAMEngine:
         self._n_points_host = int(torch.sum(
             self.map.point_valid.to(torch.int32)))
         self.mapmaker._n_points_hint = self._n_points_host
+        if self.async_mapping:
+            mm = self.mapmaker
+            self._hand_over((self.map, mm.failure_mask, mm.new_point_mask))
+            with self._map_lock:
+                self._mapping_on = True
 
     def _track(self, im: Tensor):
         """A TRACKING frame: the previous frame's decisions, this frame's
@@ -318,6 +475,7 @@ class SLAMEngine:
         pass. Returns (relocalized, added_kf)."""
         cfg = self.cfg
         mm = self.mapmaker
+        m = self.snapshot()
         st = self.tracker_state
         p = self._pending
         relocalized = added_kf = False
@@ -328,7 +486,7 @@ class SLAMEngine:
             # the frame whose quality said lost.
             if lost > cfg.tracker.max_lost_frames:
                 rr = reloclib.attempt_recovery(
-                    self.map, p["out"].sbi, self.cam_params, self._sbi_size,
+                    m, p["out"].sbi, self.cam_params, self._sbi_size,
                     cfg.reloc.max_score, cfg.reloc.esm_iterations)
                 if bool(rr.success):
                     st = dataclasses.replace(
@@ -343,38 +501,36 @@ class SLAMEngine:
                     and self.frames_since_kf
                     > cfg.tracker.min_frames_between_kfs
                     and mm.queue_size() < cfg.mapmaker.max_queue_size
-                    and mm.n_kfs() + mm.queue_size()
-                    < self.map.kf_R.shape[0]):
+                    and mm.n_kfs() + mm.queue_size() < m.kf_R.shape[0]):
                 res, pst = p["out"].result, p["out"].state
                 meas = dict(point=res.meas_point, pos=res.meas_pos,
                             level=res.meas_level, subpix=res.meas_subpix,
                             valid=res.meas_valid)
-                mm.add_keyframe(self._build(p["im"]), pst.pose, meas,
-                                pst.depth_mean, pst.depth_sigma)
+                kf = (self._build(p["im"]), pst.pose, meas, pst.depth_mean,
+                      pst.depth_sigma)
+                self._hand_over(kf)
+                mm.add_keyframe(*kf)
                 self.frames_since_kf = 0
                 added_kf = True
 
         # This frame: build and track, then the decision scalars.
-        P = self.map.point_pos.shape[0]
+        P = m.point_pos.shape[0]
         rand_coarse, rand_fine = self.draws.track(P)
         fo = trklib.track_frame_from_image(
-            st, self.map, im, self._prev_sbi_track, self.cam,
+            st, m, im, self._prev_sbi_track, self.cam,
             self.image_size, self.cam_params, cfg.tracker, cfg.frontend,
             cfg.mapmaker.wiggle_scale, rand_coarse=rand_coarse,
             rand_fine=rand_fine)
         res = fo.result
         need_kf = mmlib.need_new_kf(
-            self.map, fo.state.pose, fo.state.depth_mean,
+            m, fo.state.pose, fo.state.depth_mean,
             mm.wiggle_depth_norm, cfg.mapmaker.max_kf_dist_wiggle_mult)
         info = torch.stack([x.to(torch.int64) for x in (
             fo.state.quality, fo.state.lost_frames,
             torch.sum(res.meas_valid.to(torch.int32)), need_kf,
-            torch.sum(self.map.point_valid.to(torch.int32)))])
+            torch.sum(m.point_valid.to(torch.int32)))])
         self.tracker_state = fo.state
         self._prev_sbi_track = fo.sbi_track
-        self.map = dataclasses.replace(
-            self.map, point_inlier=self.map.point_inlier + res.inlier_delta,
-            point_outlier=self.map.point_outlier + res.outlier_delta)
         # Let bad-point GC look at the new counts now and then.
         if self.frame_idx % 20 == 0:
             mm.mark_dirty()
@@ -383,8 +539,18 @@ class SLAMEngine:
             self._read_info(info)
         self._pending = dict(im=im, out=fo, info=info)
 
+        if self.async_mapping:
+            # The deltas go to the worker's next pass, which it starts now.
+            deltas = (res.inlier_delta, res.outlier_delta)
+            self._hand_over(deltas)
+            with self._map_lock:
+                self._pending_deltas.append(deltas)
+            self._mapping_wake.set()
+            return relocalized, added_kf
         # One mapping pass.
-        mm.map = self.map
+        mm.map = dataclasses.replace(
+            m, point_inlier=m.point_inlier + res.inlier_delta,
+            point_outlier=m.point_outlier + res.outlier_delta)
         slot = mm.step(self.newest_kf)
         self.map = mm.map
         if slot is not None:

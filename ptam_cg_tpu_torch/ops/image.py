@@ -90,3 +90,23 @@ def central_gradients(im: Tensor) -> tuple:
     gx[..., 1:-1] = im[..., 2:] - im[..., :-2]
     gy[..., 1:-1, :] = im[..., 2:, :] - im[..., :-2, :]
     return gx, gy
+
+
+def bilinear_sample(im: Tensor, xy: Tensor, pad_value: float = 0.0):
+    """Bilinear interpolation of ``im`` (H, W) at the (x, y) pixel points
+    ``xy`` (..., 2). Returns (values, valid): valid marks samples whose
+    2x2 support lies inside the image; the others read ``pad_value``."""
+    H, W = im.shape[-2], im.shape[-1]
+    x, y = xy[..., 0], xy[..., 1]
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0, y - y0
+    x0i, y0i = x0.to(torch.int64), y0.to(torch.int64)
+    valid = (x0i >= 0) & (y0i >= 0) & (x0i + 1 <= W - 1) & (y0i + 1 <= H - 1)
+    x0c = torch.clamp(x0i, 0, W - 2)
+    y0c = torch.clamp(y0i, 0, H - 2)
+    v00, v01 = im[y0c, x0c], im[y0c, x0c + 1]
+    v10, v11 = im[y0c + 1, x0c], im[y0c + 1, x0c + 1]
+    top = v00 * (1 - fx) + v01 * fx
+    bot = v10 * (1 - fx) + v11 * fx
+    vals = top * (1 - fy) + bot * fy
+    return torch.where(valid, vals, torch.full_like(vals, pad_value)), valid

@@ -181,3 +181,37 @@ def motion_jacobian(p_cam: Tensor) -> Tensor:
         torch.stack([-y, x, zeros], dim=-1),
     ]
     return torch.stack(rows, dim=-2)
+
+
+def quat_from_rot(R: Tensor) -> Tensor:
+    """Rotation matrix -> quaternion [w, x, y, z] (Shepperd's method, the
+    branch by the largest diagonal term), with w >= 0."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qs = torch.stack([torch.stack(b, dim=-1) for b in (
+        (1.0 + tr, m21 - m12, m02 - m20, m10 - m01),
+        (m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20),
+        (m02 - m20, m01 + m10, 1.0 + m11 - m00 - m22, m12 + m21),
+        (m10 - m01, m02 + m20, m12 + m21, 1.0 + m22 - m00 - m11))], dim=-2)
+    qs = qs / torch.linalg.vector_norm(qs, dim=-1, keepdim=True)
+    case = torch.where(tr > 0.0, 0, torch.where(
+        (m00 > m11) & (m00 > m22), 1, torch.where(m11 > m22, 2, 3)))
+    q = torch.take_along_dim(qs, case[..., None, None].expand(
+        *case.shape, 1, 4), dim=-2)[..., 0, :]
+    return torch.where(q[..., :1] < 0, -q, q)
+
+
+def rot_from_quat(q: Tensor) -> Tensor:
+    """Quaternion [w, x, y, z] (any norm) -> rotation matrix."""
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)], dim=-1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)], dim=-1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)], dim=-1),
+    ], dim=-2)

@@ -1,4 +1,4 @@
-"""Move nested dataclasses of tensors between devices."""
+"""Move nested dataclasses of tensors between devices, and walk them."""
 
 from __future__ import annotations
 
@@ -22,3 +22,19 @@ def to_device(obj, device):
     if isinstance(obj, dict):
         return {k: to_device(v, device) for k, v in obj.items()}
     return obj
+
+
+def tensors(obj):
+    """Every tensor inside ``obj`` (through dataclasses, tuples, lists and
+    dicts), in order."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            yield from tensors(getattr(obj, f.name))
+    elif isinstance(obj, (tuple, list)):
+        for v in obj:
+            yield from tensors(v)
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from tensors(v)

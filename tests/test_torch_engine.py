@@ -363,6 +363,10 @@ def test_replay_identical_under_load(monkeypatch):
 
 
 def test_async_mapping_is_refused():
-    with pytest.raises(NotImplementedError):
-        tengine.SLAMEngine(_tcfg(), image_size=SIZE, max_points=64,
-                           max_kfs=2, device="cpu", async_mapping=True)
+    """Once closed, an engine with a mapping worker refuses frames: its
+    worker has stopped (tests/test_torch_async.py runs the worker)."""
+    eng = tengine.SLAMEngine(_tcfg(), image_size=SIZE, max_points=64,
+                             max_kfs=2, device="cpu", async_mapping=True)
+    eng.close()
+    with pytest.raises(RuntimeError, match="closed"):
+        eng.process_frame(np.zeros((SIZE[1], SIZE[0]), np.uint8))

@@ -66,7 +66,10 @@ SCANNED = ("models/tracker.py", "models/keyframe.py", "models/mapmaker.py",
            "models/bundle.py", "models/homography.py",
            "models/initializer.py", "models/relocalizer.py",
            "models/engine.py", "utils/geometry.py", "utils/mest.py",
-           "utils/evaluate.py", "io/synth.py", "io/from_jax.py")
+           "utils/evaluate.py", "io/synth.py", "io/from_jax.py",
+           "io/tum.py", "io/settings.py", "io/checkpoint.py",
+           "io/commands.py", "native/__init__.py", "viz/mapviewer.py",
+           "viz/ar.py", "apps/run_tum.py", "apps/run_synthetic.py")
 
 
 def test_source_scan_covers_every_slice():
@@ -87,8 +90,9 @@ def test_no_source_line_imports_the_jax_package():
 
 def _entry_points():
     from ptam_cg_tpu_torch.camera import atan
-    from ptam_cg_tpu_torch.io import from_jax, synth
+    from ptam_cg_tpu_torch.io import checkpoint, from_jax, synth
     from ptam_cg_tpu_torch.models import engine, map_state, tracker
+    from ptam_cg_tpu_torch.viz import ar
     return [atan.make_camera, map_state.empty_map, synth.make_texture,
             tracker.init_tracker_state, engine.SLAMEngine, engine.Draws,
             synth.orbit_trajectory, synth.SyntheticSequence,
@@ -100,13 +104,20 @@ def _entry_points():
             from_jax.bundle_problem_from_numpy, from_jax.lm_state_from_numpy,
             from_jax.trail_state_from_numpy, from_jax.matches_from_numpy,
             from_jax.homography_result_from_numpy,
-            synth.ba_problem, synth.ba_map]
+            synth.ba_problem, synth.ba_map, checkpoint.load_map,
+            checkpoint.load_ba_state, ar.make_cube]
 
 
 def test_entry_points_default_to_the_card():
     for fn in _entry_points():
         default = inspect.signature(fn).parameters["device"].default
         assert default == "cuda", fn.__qualname__
+
+
+def test_apps_default_to_the_card():
+    from ptam_cg_tpu_torch.apps import run_synthetic, run_tum
+    assert run_tum.parse_args(["data"]).device == "cuda"
+    assert run_synthetic.parse_args([]).device == "cuda"
 
 
 def test_empty_map_and_make_camera_ask_for_cuda():
