@@ -1,8 +1,14 @@
 """Run the PyTorch port's tracking step, keyframe integration, bundle
 adjustment, stereo init, relocalization, the engine (with and without its
-mapping worker) and the dataset entry point on one NVIDIA GPU.
+mapping worker), the dataset entry point, point-sharded BA over
+torch.distributed, the meshed engine and the calibrator on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
+
+(``python3 chip_smoke.py --rank R --world W --port P --job ba|engine
+--dir D`` is one rank of phase 14 or 15, which the script starts
+itself.)
 
 Phases, each fatal on failure:
 1. device: the card's name and power limit; build the three CUDA kernels
@@ -123,7 +129,33 @@ Phases, each fatal on failure:
    dataset (``io/tum.py``), read by the native frame pump (each frame
    equal to its file), and ``apps.run_tum`` with ``--native``, a settings
    file, a console script, a checkpoint (equal to the final map), a map
-   render and AR frames; ``apps.run_synthetic --async-mapping``.
+   render and AR frames; ``apps.run_synthetic --async-mapping``;
+14. point-sharded global BA (``parallel/sharded_ba.py``, no kernel) at
+   tests/test_sharded_ba.py::make_problem_large's full width (128
+   keyframes, 16,384 points, 65,536 measurements): 2 ranks on the card
+   over gloo (two processes of this script, started with ``--rank``),
+   against the one-process ``bundle.compute`` on the card: one LM step
+   within JAX's at-scale bars (the same iterations and accepts, error
+   within a relative 1e-3, poses within 2e-4, points' 99th percentile
+   within 2e-3, over 99.9% of pruned flags equal), the whole run's RMS
+   under 0.05 px and within 0.02 px of the one-process run's, the
+   points within a median 5e-3 of the truth, both ranks bit-identical;
+   ``compute_sharded`` with NCCL on 1 rank to the same bars; a 2-rank
+   checkpoint after the first chunk resumed on the NCCL rank; ms a chunk
+   (CUDA events), the floats each collective moves and the share of the
+   chunks' host time spent in collectives;
+15. the engine with a 2-rank mesh (gloo, both ranks on the card) on
+   11e's orbit: the ranks' FrameInfos and launch counts identical,
+   global BA sharded, the outcome equal to 11e's card run within its
+   bars, K1-K3's launches equal to those the calls make, a tracked
+   frame's p50 and p95 beside 11e's;
+16. ``apps.run_calib --synthetic 5`` at 640x480 on the card: RMS under
+   0.3 px, the parameters within tests/test_calibrator.py's bars, the
+   CPU port's grid of view 0 (from the card's image) and its joint
+   optimization from the card's grids within CALIB_* of the card's;
+   ``apps.make_synth_tum --nonplanar`` (60 frames) then ``apps.run_tum
+   --native`` on it, ATE under 8% of the span
+   (tests/test_slam_nonplanar.py's bar).
 The line before the last is a JSON summary of the kernels (numbers summed
 over a tracked frame's calls, K3's over a keyframe's;
 ``launches_by_stream_async``: phase 12's launches by CUDA stream); the
@@ -216,6 +248,15 @@ GROW_T_TOL = 4e-4
 # Phase 13: 11e's first frames, written as a TUM-layout dataset.
 DATASET_FRAMES = 60
 ENG_PROFILE = 20     # 11c, 12: the last frames, under the profiler
+# Phase 14: tests/test_sharded_ba.py::make_problem_large at full width.
+SHARD_BA = dict(n_cams=128, n_pts=16384, obs_per_pt=4, seed=7)
+SHARD_RANKS = 2
+RANK_DEADLINE = 600  # s: a rank past it is killed and its phase fails
+# Phase 16: card against the CPU port's calibrator (the CPU tests measure
+# 1.5e-5 px between the packages' grids, 5e-6 between their parameters).
+CALIB_GRID_TOL = 1e-3
+CALIB_PARAM_TOL = 1e-4
+NONPLANAR_FRAMES = 60
 ENG_SYNC = 10        # 11c: the frames before them, under sync debug mode
 ENG_CPU1 = 16        # 11b: frames the CPU runs on one thread (the spread)
 # 11b: card against CPU, each frame's rotation and translation over |t|
@@ -1231,6 +1272,42 @@ def latency_stats(infos, times):
                            if infos[k].added_kf])
 
 
+def engine_targets():
+    """The functions that launch each kernel on the engine's path: K1 in
+    every build, K3 in a keyframe build; K2 4 a tracked frame, 2 a
+    re-find of one keyframe, 3 an epipolar level, 1 at the trail start, 3
+    a trail frame, 2 in an init outside its epipolar levels."""
+    from ptam_cg_tpu_torch.models import initializer, keyframe, mapmaker
+    from ptam_cg_tpu_torch.models import tracker
+    return [(tracker, "track_frame_from_image"), (keyframe, "build_frame"),
+            (mapmaker, "refind_in_kf"), (mapmaker, "add_points_epipolar"),
+            (initializer, "trail_start"), (initializer, "trail_advance"),
+            (initializer, "init_from_stereo")]
+
+
+def expected_launches(n):
+    """The launches of each kernel that the calls ``n`` (by the names of
+    ``engine_targets``) make."""
+    return {"fast10": n["track_frame_from_image"] + n["build_frame"],
+            "shi_tomasi": n["build_frame"],
+            "gather_windows": 4 * n["track_frame_from_image"]
+            + 2 * n["refind_in_kf"] + 3 * n["add_points_epipolar"]
+            + n["trail_start"] + 3 * n["trail_advance"]
+            + 2 * n["init_from_stereo"]}
+
+
+def run(eng, ims, times=None):
+    """Each frame's FrameInfo; ``times`` gets each ``process_frame``'s
+    return time on the host clock (no sync, as bench_engine.py)."""
+    infos = []
+    for im in ims:
+        t0 = time.perf_counter()
+        infos.append(eng.process_frame(im))
+        if times is not None:
+            times.append(time.perf_counter() - t0)
+    return infos
+
+
 def engine(torch, dev, card, kernels, reset_counts, counts):
     """Phase 11: ``SLAMEngine.process_frame`` on bench_engine.py's scene,
     deterministic (11a), card against CPU (11b), the card's latency mode
@@ -1243,8 +1320,6 @@ def engine(torch, dev, card, kernels, reset_counts, counts):
                                           MapMakerConfig)
     from ptam_cg_tpu_torch.io import synth
     from ptam_cg_tpu_torch.models import engine as englib
-    from ptam_cg_tpu_torch.models import initializer, keyframe, mapmaker
-    from ptam_cg_tpu_torch.models import tracker
 
     W, H = SIZE
     seq = synth.SyntheticSequence(REF_PARAMS, image_size=SIZE, device=dev,
@@ -1259,33 +1334,7 @@ def engine(torch, dev, card, kernels, reset_counts, counts):
         return englib.SLAMEngine(cfg, image_size=SIZE, device=device,
                                  **capacity, **kw)
 
-    # What launches each kernel on the engine's path: K1 in every build,
-    # K3 in a keyframe build; K2 4 a tracked frame, 2 a re-find of one
-    # keyframe, 3 an epipolar level, 1 at the trail start, 3 a trail
-    # frame, 2 in an init outside its epipolar levels.
-    targets = [(tracker, "track_frame_from_image"), (keyframe, "build_frame"),
-               (mapmaker, "refind_in_kf"), (mapmaker, "add_points_epipolar"),
-               (initializer, "trail_start"), (initializer, "trail_advance"),
-               (initializer, "init_from_stereo")]
-
-    def expected(n):
-        return {"fast10": n["track_frame_from_image"] + n["build_frame"],
-                "shi_tomasi": n["build_frame"],
-                "gather_windows": 4 * n["track_frame_from_image"]
-                + 2 * n["refind_in_kf"] + 3 * n["add_points_epipolar"]
-                + n["trail_start"] + 3 * n["trail_advance"]
-                + 2 * n["init_from_stereo"]}
-
-    def run(eng, ims, times=None):
-        """Each frame's FrameInfo; ``times`` gets each ``process_frame``'s
-        return time on the host clock (no sync, as bench_engine.py)."""
-        infos = []
-        for im in ims:
-            t0 = time.perf_counter()
-            infos.append(eng.process_frame(im))
-            if times is not None:
-                times.append(time.perf_counter() - t0)
-        return infos
+    targets, expected = engine_targets(), expected_launches
 
     # ---- 11a. the card, deterministic, every frame ----
     eng = make(dev, deterministic=True, draws=HostDraws(englib, 0, dev))
@@ -1477,7 +1526,7 @@ def engine(torch, dev, card, kernels, reset_counts, counts):
                                    **GROW_SEQ)
     gframes = [gseq.frame(i).clamp(0, 255).to(torch.uint8).cpu().numpy()
                for i in range(GROW_SEQ["n_frames"])]
-    grown, gjobs, secs = {}, {}, {}
+    grown, gjobs, secs, gtimes = {}, {}, {}, []
     for tag, where, threads in (("card", dev, n_threads),
                                 ("CPU", "cpu", n_threads),
                                 ("CPU 1 thread", "cpu", 1)):
@@ -1490,7 +1539,7 @@ def engine(torch, dev, card, kernels, reset_counts, counts):
         reset_counts()
         t0 = time.perf_counter()
         with CallCounts(targets) as calls:
-            grown[tag] = run(eng, gframes)
+            grown[tag] = run(eng, gframes, gtimes if tag == "card" else None)
         torch.cuda.synchronize()
         secs[tag] = time.perf_counter() - t0
         if tag == "card":
@@ -1533,7 +1582,7 @@ def engine(torch, dev, card, kernels, reset_counts, counts):
           "11e: card and CPU engine poses differ")
     return dict(frames=frames, seq=seq, gframes=gframes, gseq=gseq,
                 make=make, run=run, targets=targets, expected=expected,
-                sync=c)
+                sync=c, grown=card_g, grown_times=gtimes)
 
 
 def wait_for(cond, seconds=30.0):
@@ -1838,6 +1887,550 @@ def dataset_entry(torch, card, ph11):
           f"span {syn['span']:.4f}  [{card}]")
     check(syn["ate"] < 0.05 * max(syn["span"], 0.1),
           "13: run_synthetic's ATE over the bar")
+
+
+# ---------------------------------------------------------------------------
+# Phases 14-15: ranks of a torch.distributed group, each a process running
+# this script with --rank (two on the one card over gloo)
+# ---------------------------------------------------------------------------
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def launch_ranks(job, world, workdir, deadline_s=RANK_DEADLINE):
+    """Run ``job`` on ``world`` gloo ranks, each this script with --rank
+    on the card; returns each rank's results (``<job>_rank<r>.npz``
+    written by the rank). Past the deadline every rank is killed and the
+    phase fails; so does a rank that exits non-zero (its log's tail is
+    printed)."""
+    import os
+
+    import numpy as np
+    port = free_port()
+    logs = [open(os.path.join(workdir, f"{job}_rank{r}.log"), "w")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+         "--world", str(world), "--port", str(port), "--job", job,
+         "--dir", workdir], stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(world)]
+    end = time.perf_counter() + deadline_s
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(end - time.perf_counter(), 0.1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs:
+            f.close()
+    for r, proc in enumerate(procs):
+        if proc.returncode != 0:
+            with open(os.path.join(workdir, f"{job}_rank{r}.log")) as f:
+                print(f.read()[-4000:])
+            fail(f"{job} rank {r} exited {proc.returncode} (killed at the "
+                 f"{deadline_s} s deadline if negative)")
+    return [dict(np.load(os.path.join(workdir, f"{job}_rank{r}.npz")))
+            for r in range(world)]
+
+
+class CollectiveStats:
+    """Wraps a mesh's ``all_reduce`` and ``all_gather``: host seconds in
+    them, and the floats each moves by (kind, size) and calls."""
+
+    def __init__(self, mesh):
+        self.mesh, self.seconds, self.calls = mesh, 0.0, {}
+        for kind in ("all_reduce", "all_gather"):
+            fn = getattr(mesh, kind)
+
+            def wrapped(t, *a, _fn=fn, _kind=kind, **kw):
+                t0 = time.perf_counter()
+                out = _fn(t, *a, **kw)
+                self.seconds += time.perf_counter() - t0
+                key = (_kind, t.numel())
+                self.calls[key] = self.calls.get(key, 0) + 1
+                return out
+            setattr(mesh, kind, wrapped)
+
+    def reset(self):
+        self.seconds, self.calls = 0.0, {}
+
+
+class ChunkTimes:
+    """While active, CUDA-event ms and host seconds of each call of
+    ``module.name`` (an LM chunk)."""
+
+    def __init__(self, torch, module, name):
+        self.torch, self.module, self.name = torch, module, name
+        self.ms, self.host = [], []
+
+    def __enter__(self):
+        torch, fn = self.torch, getattr(self.module, self.name)
+        self.saved = fn
+
+        def timed(*a, **kw):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            t0 = time.perf_counter()
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            e1.synchronize()
+            self.host.append(time.perf_counter() - t0)
+            self.ms.append(e0.elapsed_time(e1))
+            return out
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.saved)
+
+
+def ba_outcome(torch, bundle, prob, cam, gt_pts):
+    """(RMS px, median point error against the truth) of a final
+    problem."""
+    rms = float(bundle.residual_rms(prob, cam))
+    err = torch.linalg.vector_norm(prob.pt_pos - gt_pts, dim=-1)
+    return rms, float(err.median())
+
+
+def rank_ba(torch, dev, rank, mesh, workdir, out):
+    """Phase 14 on one rank: one sharded LM step (2 iterations at most),
+    a whole ``compute_sharded`` timed by chunk with the collectives
+    counted, and a run stopped after its first chunk with a checkpoint."""
+    import os
+
+    import numpy as np
+    from ptam_cg_tpu_torch.config import BundleConfig
+    from ptam_cg_tpu_torch.io import synth
+    from ptam_cg_tpu_torch.parallel import sharded_ba
+    prob, cam, _ = synth.ba_problem_large(device=dev, **SHARD_BA)
+    stats = CollectiveStats(mesh)
+    step_cfg = BundleConfig(max_iterations=2)
+    shard, perm = sharded_ba.shard_problem(prob, mesh, return_perm=True)
+    s, f = sharded_ba.sharded_lm_step_flags(
+        sharded_ba.init_sharded_lm(shard, mesh, step_cfg), mesh, cam,
+        step_cfg)
+    back = sharded_ba.unshard_measurements(prob, s.problem, perm, mesh)
+    for k in ("cam_R", "cam_t", "pt_pos", "meas_bad"):
+        out[f"step.{k}"] = getattr(back, k).cpu().numpy()
+    out["step.flags"] = np.array(f)
+    out["step.error"] = np.array(float(s.last_error))
+    stats.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ChunkTimes(torch, sharded_ba, "sharded_lm_chunk") as chunks:
+        st, n, flags = sharded_ba.compute_sharded(prob, mesh, cam,
+                                                  return_flags=True)
+    torch.cuda.synchronize()
+    out["run.seconds"] = np.array(time.perf_counter() - t0)
+    for k in ("cam_R", "cam_t", "pt_pos", "meas_bad"):
+        out[f"run.{k}"] = getattr(st.problem, k).cpu().numpy()
+    out["run.flags"] = np.array([int(x) for x in flags] + [n])
+    out["run.chunk_ms"] = np.array(chunks.ms)
+    out["run.chunk_host"] = np.array(chunks.host)
+    out["run.coll_seconds"] = np.array(stats.seconds)
+    out["run.coll_calls"] = np.array([[k == "all_reduce", size, c] for
+                                      (k, size), c in stats.calls.items()])
+    sharded_ba.compute_sharded(
+        prob, mesh, cam, abort_check=lambda: True,
+        checkpoint_path=os.path.join(workdir, "ckpt.npz"),
+        checkpoint_every=1)
+
+
+def rank_engine(torch, dev, rank, mesh, workdir, out):
+    """Phase 15 on one rank: the deterministic engine with the mesh on
+    11e's frames, with 11e's draws, launch counts and frame times."""
+    import os
+
+    import numpy as np
+    from ptam_cg_tpu_torch.config import (CameraConfig, EngineConfig,
+                                          MapMakerConfig)
+    from ptam_cg_tpu_torch.kernels import fast as kfast
+    from ptam_cg_tpu_torch.kernels import gather as kgather
+    from ptam_cg_tpu_torch.kernels import shi_tomasi as kshi
+    from ptam_cg_tpu_torch.models import engine as englib
+    from ptam_cg_tpu_torch.parallel import sharded_ba
+    frames = np.load(os.path.join(workdir, "gframes.npy"))
+    mods = {"fast10": kfast, "gather_windows": kgather, "shi_tomasi": kshi}
+    shards = [0]
+    orig = sharded_ba.shard_problem
+
+    def counting(*a, **kw):
+        shards[0] += 1
+        return orig(*a, **kw)
+    sharded_ba.shard_problem = counting
+    cfg = EngineConfig(
+        camera=CameraConfig(params=REF_PARAMS, image_size=SIZE),
+        mapmaker=MapMakerConfig(candidate_min_shi_tomasi_score=INIT_CAND_MIN))
+    eng = englib.SLAMEngine(cfg, image_size=SIZE, device=dev, **ENG_MAP,
+                            deterministic=True,
+                            draws=HostDraws(englib, 0, dev), mesh=mesh)
+    jobs = dict.fromkeys(MAPMAKER_JOBS, 0)
+    watch_mapmaker(eng.mapmaker, jobs)
+    for mod in mods.values():
+        mod.launches = 0
+    times = []
+    torch.cuda.synchronize()
+    with CallCounts(engine_targets()) as calls:
+        infos = run(eng, list(frames), times)
+    torch.cuda.synchronize()
+    launches = {k: mod.launches for k, mod in mods.items()}
+    want = expected_launches(calls.n)
+    out["outcome"] = np.array([
+        [("NOT_STARTED", "TRAIL_TRACKING", "TRACKING").index(i.stage),
+         i.quality, i.added_kf, i.relocalized, i.n_kfs, i.n_found,
+         i.n_points] for i in infos])
+    out["R"] = np.stack([i.pose.R.cpu().numpy() for i in infos])
+    out["t"] = np.stack([i.pose.t.cpu().numpy() for i in infos])
+    out["times"] = np.array(times)
+    out["shards"] = np.array([shards[0], int(eng.mapmaker._use_sharded)])
+    out["launches"] = np.array([[launches[k], want[k]] for k in KERNELS])
+    out["jobs"] = np.array([jobs[k] for k in MAPMAKER_JOBS])
+
+
+def rank_main(argv):
+    """``--rank R --world W --port P --job ba|engine --dir D``: one rank of
+    phase 14 or 15 on the card over gloo; writes ``D/<job>_rank<R>.npz``."""
+    import argparse
+    import os
+    ap = argparse.ArgumentParser()
+    for name in ("rank", "world", "port"):
+        ap.add_argument(f"--{name}", type=int, required=True)
+    ap.add_argument("--job", choices=["ba", "engine"], required=True)
+    ap.add_argument("--dir", required=True)
+    args = ap.parse_args(argv)
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from ptam_cg_tpu_torch.parallel import mesh as meshlib
+    dev = torch.device("cuda:0")
+    meshlib.initialize_distributed(f"127.0.0.1:{args.port}", args.world,
+                                   args.rank, backend="gloo",
+                                   timeout_s=RANK_DEADLINE)
+    mesh = meshlib.make_map_mesh(device=dev)
+    check(mesh.size == args.world and mesh.backend == "gloo",
+          "rank: the mesh is not the gloo world")
+    out = {}
+    {"ba": rank_ba, "engine": rank_engine}[args.job](
+        torch, dev, args.rank, mesh, args.dir, out)
+    mesh.barrier()
+    np.savez(os.path.join(args.dir, f"{args.job}_rank{args.rank}.npz"),
+             **out)
+    torch.distributed.destroy_process_group()
+
+
+def ranks_identical(ranks, keys, what):
+    import numpy as np
+    differ = [k for k in keys if not np.array_equal(ranks[0][k], ranks[1][k])]
+    check(not differ, f"{what}: the ranks differ in {differ}")
+
+
+def sharded_ba_phase(torch, dev, card):
+    """Phase 14: point-sharded global BA at tests/test_sharded_ba.py::
+    make_problem_large's full width (128 keyframes, 16,384 points, 65,536
+    measurements): 2 ranks on the card over gloo, and NCCL with 1 rank,
+    against the one-process ``bundle.compute`` on the card; ranks
+    bit-identical; a checkpoint after the first chunk (2 ranks) resumed on
+    1 rank; ms a chunk, floats a collective moves and the host time in
+    collectives."""
+    import os
+    import tempfile
+
+    import numpy as np
+    from ptam_cg_tpu_torch.config import BundleConfig
+    from ptam_cg_tpu_torch.io import synth
+    from ptam_cg_tpu_torch.models import bundle
+    from ptam_cg_tpu_torch.parallel import mesh as meshlib
+    from ptam_cg_tpu_torch.parallel import sharded_ba
+    prob, cam, (_, _, gt_pts) = synth.ba_problem_large(device=dev, **SHARD_BA)
+    C, P, M = (prob.cam_R.shape[0], prob.pt_pos.shape[0],
+               prob.meas_cam.shape[0])
+    step_cfg = BundleConfig(max_iterations=2)
+    s1 = bundle.lm_step(bundle.init_lm(prob, step_cfg), cam, step_cfg)
+    f1 = bundle.flags(s1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ChunkTimes(torch, bundle, "lm_chunk") as one_chunks:
+        one, n_one, one_flags = bundle.compute(prob, cam, return_flags=True)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    one_out = ba_outcome(torch, bundle, one.problem, cam, gt_pts)
+    _, per2 = sharded_ba._shard_permutation(
+        prob.meas_pt.cpu().numpy(), prob.meas_valid.cpu().numpy(),
+        P // SHARD_RANKS, SHARD_RANKS)
+    print(f"[14] problem: {C} cameras, {P} points, {M} measurements "
+          f"({int(prob.meas_valid.sum())} valid), {SHARD_RANKS} ranks of "
+          f"{P // SHARD_RANKS} points and {per2} measurement slots; "
+          f"one-process compute: flags {one_flags} in {n_one} chunks, "
+          f"{one_s:.2f} s, chunk ms {fmt_ms(one_chunks.ms)}, RMS "
+          f"{one_out[0]:.3e} px, median point error {one_out[1]:.3e}  "
+          f"[{card}]")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = launch_ranks("ba", SHARD_RANKS, tmp)
+        ranks_s = time.perf_counter() - t0
+        ranks_identical(ranks, [k for k in ranks[0]
+                                if k.split(".")[0] in ("step", "run")
+                                and not k.startswith(("run.chunk",
+                                                      "run.seconds",
+                                                      "run.coll"))],
+                        "14")
+        r0 = ranks[0]
+        # 14a: one step against the one-process step, at JAX's at-scale
+        # bars (tests/test_sharded_ba.py).
+        iters, acc = int(r0["step.flags"][1]), int(r0["step.flags"][3])
+        e1, es = float(s1.last_error), float(r0["step.error"])
+        dR = np.abs(r0["step.cam_R"] - s1.problem.cam_R.cpu().numpy()).max()
+        dt = np.abs(r0["step.cam_t"] - s1.problem.cam_t.cpu().numpy()).max()
+        dp = np.percentile(np.abs(r0["step.pt_pos"]
+                                  - s1.problem.pt_pos.cpu().numpy()), 99)
+        agree = float((r0["step.meas_bad"]
+                       == s1.problem.meas_bad.cpu().numpy()).mean())
+        print(f"[14a] one LM step (2 iterations at most), 2 gloo ranks vs one "
+              f"process: iterations {iters} / {f1[1]}, accepted {acc} / "
+              f"{f1[3]}, error {es:.6e} / {e1:.6e}, |dR| {dR:.2e}, |dt| "
+              f"{dt:.2e}, points p99 {dp:.2e}, pruned flags agree "
+              f"{agree:.5f}")
+        check(iters == f1[1] and acc == f1[3], "14a: the sharded step "
+              "differs from the one-process step in its flags")
+        check(abs(es - e1) / max(e1, 1.0) < 1e-3 and dR < 2e-4
+              and dt < 2e-4 and dp < 2e-3 and agree > 0.999,
+              "14a: the sharded step differs from the one-process step")
+        # 14b: the whole run, against the one-process run.
+        run_prob = dataclasses.replace(
+            prob, **{k: torch.from_numpy(r0[f"run.{k}"]).to(dev)
+                     for k in ("cam_R", "cam_t", "pt_pos", "meas_bad")})
+        sh_out = ba_outcome(torch, bundle, run_prob, cam, gt_pts)
+        coll = {(bool(a), int(n)): int(c) for a, n, c in r0["run.coll_calls"]}
+        tries = coll.get((True, 36 * C * C + 6 * C), 0)
+        steps = coll.get((True, 42 * C + 1), 0)
+        host = float(r0["run.chunk_host"].sum())
+        print(f"[14b] compute_sharded on 2 gloo ranks (cuda:0): flags "
+              f"{r0['run.flags'][:4].tolist()} in {r0['run.flags'][4]} "
+              f"chunks, {float(r0['run.seconds']):.2f} s (2 processes "
+              f"started and run in {ranks_s:.1f} s), chunk ms (CUDA events) "
+              f"{fmt_ms(r0['run.chunk_ms'])}, RMS {sh_out[0]:.3e} px, median "
+              f"point error {sh_out[1]:.3e}; {steps} steps and {tries} lambda "
+              f"tries; floats all-reduced a try {36 * C * C + 6 * C} + 2 "
+              f"({(36 * C * C + 6 * C + 2) * 4 / 1e6:.3f} MB), a step "
+              f"{42 * C + 1} and an all_gather of {per2 * SHARD_RANKS} "
+              f"squared errors (M = {M} padded per shard); calls (all_reduce,"
+              f" floats): count {coll}; host time "
+              f"in collectives {float(r0['run.coll_seconds']):.3f} s of "
+              f"{host:.3f} s in chunks "
+              f"({float(r0['run.coll_seconds']) / max(host, 1e-9) * 100:.1f}"
+              f"%)  [{card}]")
+        check(not r0["run.flags"][2] and not one_flags[2],
+              "14b: a run failed")
+        check(sh_out[0] < 0.05 and one_out[0] < 0.05
+              and abs(sh_out[0] - one_out[0]) < 0.02,
+              "14b: the sharded run's RMS is off the one-process run's")
+        check(sh_out[1] < 5e-3 and one_out[1] < 5e-3,
+              "14b: points not recovered")
+        # 14c-d: NCCL with one rank; the 2-rank checkpoint resumed there.
+        meshlib.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                                       backend="nccl",
+                                       timeout_s=RANK_DEADLINE)
+        try:
+            m1 = meshlib.make_map_mesh(device=dev)
+            check(m1.backend == "nccl" and m1.size == 1,
+                  "14c: not a one-rank NCCL mesh")
+            m1.all_reduce(torch.zeros(1, device=dev))  # the communicator
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ChunkTimes(torch, sharded_ba, "sharded_lm_chunk") as nc:
+                st1, n1, fl1 = sharded_ba.compute_sharded(
+                    prob, m1, cam, return_flags=True)
+            torch.cuda.synchronize()
+            n_s = time.perf_counter() - t0
+            nccl_out = ba_outcome(torch, bundle, st1.problem, cam, gt_pts)
+            ck = os.path.join(tmp, "ckpt.npz")
+            from ptam_cg_tpu_torch.io.checkpoint import load_ba_state
+            ck_iters = int(load_ba_state(ck, dev).iters)
+            res, nr = sharded_ba.resume_sharded(ck, m1, cam)
+            res_out = ba_outcome(torch, bundle, res.problem, cam, gt_pts)
+        finally:
+            torch.distributed.destroy_process_group()
+    print(f"[14c] compute_sharded with NCCL, 1 rank: flags {fl1} in {n1} "
+          f"chunks, {n_s:.2f} s, chunk ms {fmt_ms(nc.ms)}, RMS "
+          f"{nccl_out[0]:.3e} px, median point error {nccl_out[1]:.3e}  "
+          f"[{card}]")
+    print(f"[14d] the 2-rank checkpoint after its first chunk (iteration "
+          f"{ck_iters}) resumed on 1 NCCL rank: {nr} chunks, RMS "
+          f"{res_out[0]:.3e} px (uninterrupted 2-rank run {sh_out[0]:.3e}), "
+          f"median point error {res_out[1]:.3e}")
+    check(not fl1[2] and nccl_out[0] < 0.05
+          and abs(nccl_out[0] - one_out[0]) < 0.02 and nccl_out[1] < 5e-3,
+          "14c: the NCCL run is off the one-process run")
+    check(ck_iters >= 1 and nr >= 1 and res_out[0] < 0.05
+          and abs(res_out[0] - sh_out[0]) < 0.02 and res_out[1] < 5e-3,
+          "14d: the resumed run is off the uninterrupted run")
+
+
+def fmt_ms(xs):
+    xs = sorted(float(x) for x in xs)
+    if not xs:
+        return "[]"
+    return (f"median {statistics.median(xs):.2f} (min {xs[0]:.2f}, max "
+            f"{xs[-1]:.2f}, n {len(xs)})")
+
+
+class RankInfo:
+    """A FrameInfo rebuilt from a rank's arrays (stage, counts, pose)."""
+
+    def __init__(self, torch, o, R, t):
+        from ptam_cg_tpu_torch.utils.se3 import SE3
+        self.stage = ("NOT_STARTED", "TRAIL_TRACKING", "TRACKING")[o[0]]
+        (self.quality, self.added_kf, self.relocalized, self.n_kfs,
+         self.n_found, self.n_points) = (int(o[1]), bool(o[2]), bool(o[3]),
+                                         int(o[4]), int(o[5]), int(o[6]))
+        self.pose = SE3(torch.from_numpy(R), torch.from_numpy(t))
+
+
+def meshed_engine(torch, dev, card, kernels, ph11):
+    """Phase 15: the engine with a 2-rank mesh (gloo, both ranks on the
+    card) on 11e's orbit: the ranks agree frame by frame, global BA ran
+    sharded, the outcome equals 11e's card run within phase 11's bars,
+    the launches equal those the calls make; tracked-frame latency beside
+    11e's."""
+    import os
+    import tempfile
+
+    import numpy as np
+    gseq, card_g, gtimes = ph11["gseq"], ph11["grown"], ph11["grown_times"]
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "gframes.npy"), np.stack(ph11["gframes"]))
+        t0 = time.perf_counter()
+        ranks = launch_ranks("engine", 2, tmp)
+        secs = time.perf_counter() - t0
+    ranks_identical(ranks, ["outcome", "R", "t", "shards", "launches",
+                            "jobs"], "15")
+    r0 = ranks[0]
+    infos = [RankInfo(torch, o, R, t) for o, R, t in
+             zip(r0["outcome"], r0["R"], r0["t"])]
+    first = engine_outcome(infos, gseq, torch, "15")
+    bad, d_R, d_t = engine_diffs(infos, card_g, first, torch)
+    lat, lat11 = (latency_stats(infos, list(r0["times"])),
+                  latency_stats(card_g, gtimes))
+    launches = {k: int(v[0]) for k, v in zip(KERNELS, r0["launches"])}
+    want = {k: int(v[1]) for k, v in zip(KERNELS, r0["launches"])}
+    n_shards, use_sharded = (int(x) for x in r0["shards"])
+    print(f"[15] 2-rank mesh (gloo, cuda:0) on 11e's {len(infos)} frames in "
+          f"{secs:.1f} s (2 processes): shard_problem ran {n_shards} times; "
+          f"MapMaker jobs {dict(zip(MAPMAKER_JOBS, r0['jobs'].tolist()))}; "
+          f"launches {launches} (the calls make {want}); against 11e's card "
+          f"run: outcome differences {bad}, |dR| {d_R:.2e}, |dt| / |t| "
+          f"{d_t:.2e}; a tracked frame p50 {lat['p50']:.1f} ms, p95 "
+          f"{lat['p95']:.1f} ms (11e in this run: p50 {lat11['p50']:.1f}, "
+          f"p95 {lat11['p95']:.1f}; {lat['n']} / {lat11['n']} frames, "
+          f"keyframes apart)  [{card}]")
+    check(use_sharded == 1 and n_shards >= 1, "15: global BA did not run "
+          "sharded")
+    check(launches == want, "15: launch counts differ from the calls'")
+    check(not bad, "15: the meshed engine differs from 11e in outcome")
+    check(d_R <= GROW_ROT_TOL and d_t <= GROW_T_TOL,
+          "15: the meshed engine's poses differ from 11e's")
+    for name, n in launches.items():
+        kernels[name]["launches"] += n
+        kernels[name]["launches_mesh_rank0"] = n
+
+
+def calibration_and_scene(torch, dev, card):
+    """Phase 16: ``apps.run_calib --synthetic 5`` at 640x480 on the card
+    (RMS, the parameters against the truth, the card against the CPU
+    port); ``apps.make_synth_tum --nonplanar`` then ``apps.run_tum
+    --native`` on it (ATE under test_slam_nonplanar.py's bar)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    from ptam_cg_tpu_torch.apps import make_synth_tum, run_calib, run_tum
+    from ptam_cg_tpu_torch.camera import atan
+    from ptam_cg_tpu_torch.camera import calibrator
+    W, H = SIZE
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_calib.main(["--synthetic", "5", "--size", f"{W}x{H}"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got, gt = out["params"], np.array(run_calib.GT_PARAMS)
+    calib = out["calibrator"]
+    # The CPU port: view 0's grid from the card's image, and the joint
+    # optimization from the card's grids.
+    v0 = calib.views[0]
+    t0 = time.perf_counter()
+    cpu_v = calibrator.CalibImage(v0.im.cpu(), device="cpu")
+    cpu_ok = cpu_v.make_grid()
+    grid_s = time.perf_counter() - t0
+    same_grid = cpu_ok and [g.grid_pos for g in cpu_v.grid] == [
+        g.grid_pos for g in v0.grid]
+    d_grid = max((float(np.abs(a.params.pos - b.params.pos).max())
+                  for a, b in zip(cpu_v.grid, v0.grid)), default=np.inf)
+    cc = calibrator.CameraCalibrator((W, H), device="cpu")
+    cam0 = atan.make_camera(tuple(cc.params), (W, H), "cpu")
+    for v in calib.views:
+        cv = object.__new__(calibrator.CalibImage)
+        cv.im, cv.grid = v.im.cpu(), v.grid
+        cv.guess_initial_pose(cam0)
+        cc.views.append(cv)
+    t0 = time.perf_counter()
+    cpu_rms = cc.optimize(100)
+    opt_s = time.perf_counter() - t0
+    d_par = float(np.abs(np.abs(cc.params) - np.abs(got)).max())
+    print(f"[16a] run_calib --synthetic 5 at {W}x{H} on the card: "
+          f"{secs:.1f} s, views {out['views']} grid corners, RMS "
+          f"{out['rms']:.4f} px, params {np.round(got, 6).tolist()} (truth "
+          f"{gt.tolist()}); the CPU port: view 0's grid from the card's "
+          f"image {'equal' if same_grid else 'DIFFERENT'} ({len(cpu_v.grid)} "
+          f"corners, largest position difference {d_grid:.2e} px, "
+          f"{grid_s:.1f} s), 100 steps from the card's grids RMS "
+          f"{cpu_rms:.4f} px, params within {d_par:.2e} of the card's "
+          f"({opt_s:.1f} s)  [{card}]")
+    check(out["rms"] < 0.3, "16a: calibration RMS over 0.3 px")
+    check(np.all(np.abs(got[:4] - gt[:4]) <= 0.02 * gt[:4])
+          and abs(abs(got[4]) - gt[4]) < 0.01,
+          "16a: the parameters are off test_calibrator.py's bars")
+    check(same_grid and d_grid < CALIB_GRID_TOL,
+          "16a: the CPU port grows another grid")
+    check(d_par < CALIB_PARAM_TOL and abs(cpu_rms - out["rms"]) < 1e-4,
+          "16a: the CPU port's calibration differs from the card's")
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = os.path.join(tmp, "ds")
+        t0 = time.perf_counter()
+        make_synth_tum.main([ds, "--nonplanar", "--frames",
+                             str(NONPLANAR_FRAMES), "--size", f"{W}x{H}"])
+        make_s = time.perf_counter() - t0
+        cfg = os.path.join(tmp, "settings.cfg")
+        with open(cfg, "w") as f:
+            f.write(f"Camera.Parameters = [ {' '.join(map(str, REF_PARAMS))} "
+                    f"]\nMapMaker.CandidateMinShiTomasiScore = "
+                    f"{INIT_CAND_MIN}\n")
+        t0 = time.perf_counter()
+        res = run_tum.main([ds, "--native", "--settings", cfg])
+        tum_s = time.perf_counter() - t0
+    tracked = [i for i in res["infos"] if i.stage == "TRACKING"]
+    good = sum(i.quality == 2 for i in tracked)
+    print(f"[16b] make_synth_tum --nonplanar: {NONPLANAR_FRAMES} frames at "
+          f"{W}x{H} in {make_s:.1f} s; run_tum --native: {tum_s:.1f} s, "
+          f"{len(tracked)} tracked, {good} GOOD, {res['infos'][-1].n_points} "
+          f"points, {res['infos'][-1].n_kfs} keyframes; ATE "
+          f"{res['ate']:.3e}, span {res['span']:.4f} "
+          f"({res['ate'] / max(res['span'], 0.1) * 100:.3f}%, bar 8%)  "
+          f"[{card}]")
+    check(len(tracked) > 12 and good > 0.7 * len(tracked),
+          "16b: the nonplanar run did not track")
+    check(res["ate"] is not None and res["ate"] < 0.08 * max(res["span"], 0.1),
+          "16b: the nonplanar run's ATE over the bar")
 
 
 def main():
@@ -2521,6 +3114,15 @@ def main():
     # ---- 13. the dataset entry point ----
     dataset_entry(torch, card, ph11)
 
+    # ---- 14. point-sharded global BA over torch.distributed ----
+    sharded_ba_phase(torch, dev, card)
+
+    # ---- 15. the engine with a 2-rank mesh ----
+    meshed_engine(torch, dev, card, kernels, ph11)
+
+    # ---- 16. the calibrator and the nonplanar scene ----
+    calibration_and_scene(torch, dev, card)
+
     check(not any(k == "jax" or k.startswith("jax.") for k in sys.modules),
           "jax was imported")
     print(f"[end] the whole script: {time.perf_counter() - t_script:.1f} s "
@@ -2532,4 +3134,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1:
+        rank_main(sys.argv[1:])
+    else:
+        main()

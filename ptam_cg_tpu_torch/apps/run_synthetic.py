@@ -3,17 +3,20 @@ print the ATE: the port's counterpart of ``examples/run_synthetic.py``.
 
     python -m ptam_cg_tpu_torch.apps.run_synthetic [--frames N]
         [--size WxH] [--seed S] [--async-mapping] [--ar OUT_DIR]
-        [--device cuda|cpu]
+        [--profile DIR] [--device cuda|cpu]
 
 The sequence is tests/test_slam_e2e.py's orbit (height 1.5, radius 0.35,
 sweep 1.3 over the frames) rendered by the port's own synth on the
-engine's device. ``main(argv)`` returns a summary (see ``main``); it
-exits with status 1 when tracking never starts.
+engine's device. ``--profile DIR`` records frames n/2 .. n/2 + 2 with
+``torch.profiler`` (the host and, on the card, CUDA activity) and writes
+a Chrome trace to ``DIR/trace.json``. ``main(argv)`` returns a summary
+(see ``main``); it exits with status 1 when tracking never starts.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -36,9 +39,31 @@ def parse_args(argv=None):
     ap.add_argument("--ar", default=None, metavar="OUT_DIR",
                     help="write AR composites (EyeGame's eyeballs) of the "
                          "tracked frames as PPMs")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of three frames "
+                         "from the middle of the run to DIR/trace.json")
     ap.add_argument("--device", default="cuda",
                     help="the engine's device (default: the card)")
     return ap.parse_args(argv)
+
+
+def _start_profile(device):
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, out_dir):
+    """Stop ``prof`` and write its Chrome trace; returns None."""
+    prof.stop()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"profiler trace -> {path}")
+    return None
 
 
 def main(argv=None) -> dict:
@@ -66,13 +91,18 @@ def main(argv=None) -> dict:
                                 device=args.device)
     render_ar = ar_renderer(eng, size, args.ar) if args.ar else None
     est, gt, times, infos = [], [], [], []
+    prof = None
     try:
         for i in range(args.frames):
+            if args.profile and i == args.frames // 2:
+                prof = _start_profile(args.device)
             frame = seq.frame(i)
             t0 = time.perf_counter()
             info = eng.process_frame(frame)
             times.append(time.perf_counter() - t0)
             infos.append(info)
+            if prof is not None and i == args.frames // 2 + 2:
+                prof = _stop_profile(prof, args.profile)
             print(f"frame {i:3d} [{info.stage:14s}] q={info.quality} "
                   f"found={info.n_found:4d} pts={info.n_points:4d} "
                   f"kfs={info.n_kfs} {'KF+' if info.added_kf else ''} "
@@ -85,6 +115,8 @@ def main(argv=None) -> dict:
                 if render_ar is not None:
                     render_ar(frame, info.pose, i)
     finally:
+        if prof is not None:
+            _stop_profile(prof, args.profile)
         eng.close()
     if len(est) <= 5:
         print("\nFAILED: tracking never started")

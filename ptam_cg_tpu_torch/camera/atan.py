@@ -3,7 +3,7 @@
 Normalized parameters [fx fy cx cy w] scale with the image size exactly
 as the reference does, including the -0.5 pixel centre offset. The unit
 frame buffer (UFB) projections serve the AR compositor (``viz/ar.py``);
-``param_derivs`` belongs to the calibrator and is not ported yet.
+``param_derivs`` serves the calibrator (``camera/calibrator.py``).
 """
 
 from __future__ import annotations
@@ -150,6 +150,26 @@ def project_derivs(cam_xy: Tensor, cam: Camera) -> Tensor:
     j11 = fy * (frac_dy * y + factor)
     return torch.stack([torch.stack([j00, j01], dim=-1),
                         torch.stack([j10, j11], dim=-1)], dim=-2)
+
+
+def param_derivs(cam_xy: Tensor, cam: Camera) -> Tensor:
+    """d(pixel)/d(the 5 normalized params), (..., 2, 5), by forward
+    differences of 1e-3 (ATANCamera::GetCameraParameterDerivs,
+    src/ATANCamera.cc:211-237); the w column is zero when distortion is
+    off, as the reference's. Reads the image size on the host."""
+    size = tuple(int(v) for v in cam.image_size.tolist())
+    dev = cam.params.device
+    base = project(cam_xy, make_camera(cam.params, size, dev))
+    eps = 1e-3
+    cols = []
+    for i in range(5):
+        dp = cam.params.clone()
+        dp[i] += eps
+        cols.append((project(cam_xy, make_camera(dp, size, dev)) - base)
+                    / eps)
+    J = torch.stack(cols, dim=-1)
+    J[..., 4] *= cam.distortion_enabled
+    return J
 
 
 def ufb_project(cam_xy: Tensor, cam: Camera) -> Tensor:

@@ -321,9 +321,8 @@ def lm_step_flags(state: LMState, cam: atan.Camera,
     read: one read a try, none after."""
     prob, lay = state.problem, state.layout
     _check_float32_products(prob.pt_pos)
-    C, P = prob.cam_R.shape[0], prob.pt_pos.shape[0]
+    C = prob.cam_R.shape[0]
     C6 = C * 6
-    dev = prob.pt_pos.device
     active = prob.meas_valid & ~prob.meas_bad
 
     # ---- (i) robust sigma ----
@@ -339,13 +338,7 @@ def lm_step_flags(state: LMState, cam: atan.Camera,
     W_tiles = [W[t, :18 * C] for t in range(nT)]          # (18C, T) views
     eb_tiles = eb.T.reshape(3, nT, T)
 
-    free_f = (prob.cam_valid & ~prob.cam_fixed).to(torch.float32)
-    eye6 = torch.eye(6, device=dev)
-    eyeC = torch.eye(C, device=dev)
-    blk = free_f[:, None, None, None] * free_f[None, None, :, None]
-    # Fixed or invalid cameras: an identity block and zero rhs.
-    fixed_eye = (torch.einsum("jab,jk->jakb", eye6.expand(C, 6, 6), eyeC)
-                 * (1.0 - free_f)[:, None, None, None])
+    camsys = _camera_system(prob)
 
     def try_lambda(lam):
         Vi = _vinv_cols(V9, lam)                          # (3, 3, P)
@@ -357,50 +350,100 @@ def lm_step_flags(state: LMState, cam: atan.Camera,
             r = WVt @ eb_tiles[:, t].reshape(-1)
             S_off = s if S_off is None else S_off + s
             rcorr = r if rcorr is None else rcorr + r
-        rhs = ea - rcorr.reshape(C, 6)
-        Ustar = U * (torch.ones(6, 6, device=dev) + lam * eye6)
-        S = -S_off.reshape(C, 6, C, 6) + torch.einsum("jab,jk->jakb", Ustar,
-                                                      eyeC)
-        S = S * blk + fixed_eye
-        rhs = rhs * free_f[:, None]
-
-        # Cholesky of S + 1e-8 I; a factorisation that fails (S not SPD)
-        # gives a NaN solve, as JAX's does, and no exception or host sync.
-        L, info = torch.linalg.cholesky_ex(
-            S.reshape(C6, C6) + 1e-8 * torch.eye(C6, device=dev))
-        delta_cam = torch.cholesky_solve(rhs.reshape(C6, 1), L)
-        delta_cam = torch.where(info == 0, delta_cam, float("nan"))
-        delta_cam = delta_cam.reshape(C, 6) * free_f[:, None]
+        delta_cam = _solve_cameras(camsys, S_off, rcorr, U, ea, lam)
 
         # Back-substitute the point updates.
         corr = torch.cat([(delta_cam.reshape(-1) @ W_tiles[t].reshape(
             C6, 3 * T)).reshape(3, T) for t in range(nT)], dim=1)
-        rb = eb.T - corr                                  # (3, P)
-        delta_pt = torch.stack(
-            [Vi[a, 0] * rb[0] + Vi[a, 1] * rb[1] + Vi[a, 2] * rb[2]
-             for a in range(3)], dim=1)                   # (P, 3)
-        delta_pt = delta_pt * prob.pt_valid[:, None]
+        delta_pt = _back_substitute(Vi, eb.T - corr, prob.pt_valid)
 
         upd_sq = torch.sum(delta_cam ** 2) + torch.sum(delta_pt ** 2)
-        conv = upd_sq < cfg.update_squared_convergence_limit
+        new_R, new_t, new_pt, new_error = _trial(
+            prob, delta_cam, delta_pt, cam, sigma_sq, mest_kind, good,
+            new_bad, active)
+        return new_R, new_t, new_pt, upd_sq, new_error
 
-        # Trial state and its error (FindNewError).
-        d_pose = se3lib.se3_exp(delta_cam)
-        new_R = d_pose.R @ prob.cam_R
-        new_t = (d_pose.R @ prob.cam_t[..., None])[..., 0] + d_pose.t
-        new_pt = prob.pt_pos + delta_pt
-        _, _, _, new_err_sq, nb = _project_meas(new_R, new_t, new_pt, prob,
-                                                cam)
-        new_error = (torch.sum(torch.where(
-            good & ~nb, mest.objective(new_err_sq, sigma_sq, mest_kind), 0.0))
-            + torch.sum((new_bad | (active & nb)).to(torch.float32)))
-        return new_R, new_t, new_pt, conv, upd_sq, new_error
+    return _retry_and_accept(state, cfg, try_lambda, current_error, new_bad)
 
+
+def _camera_system(prob: BundleProblem):
+    """What every lambda try of a step shares in the reduced camera system:
+    the free cameras (float), the free-pair block mask and the identity
+    blocks of fixed or invalid cameras."""
+    C = prob.cam_R.shape[0]
+    dev = prob.pt_pos.device
+    free_f = (prob.cam_valid & ~prob.cam_fixed).to(torch.float32)
+    eye6 = torch.eye(6, device=dev)
+    eyeC = torch.eye(C, device=dev)
+    blk = free_f[:, None, None, None] * free_f[None, None, :, None]
+    # Fixed or invalid cameras: an identity block and zero rhs.
+    fixed_eye = (torch.einsum("jab,jk->jakb", eye6.expand(C, 6, 6), eyeC)
+                 * (1.0 - free_f)[:, None, None, None])
+    return free_f, blk, fixed_eye, eye6, eyeC
+
+
+def _solve_cameras(camsys, S_off: Tensor, rcorr: Tensor, U: Tensor,
+                   ea: Tensor, lam) -> Tensor:
+    """The camera update (C, 6) from the Schur product S_off = W V*^-1 W^T
+    (6C, 6C) and its rhs correction (6C,): S = U* - S_off solved by
+    Cholesky."""
+    free_f, blk, fixed_eye, eye6, eyeC = camsys
+    C = U.shape[0]
+    C6 = 6 * C
+    dev = U.device
+    rhs = ea - rcorr.reshape(C, 6)
+    Ustar = U * (torch.ones(6, 6, device=dev) + lam * eye6)
+    S = -S_off.reshape(C, 6, C, 6) + torch.einsum("jab,jk->jakb", Ustar,
+                                                  eyeC)
+    S = S * blk + fixed_eye
+    rhs = rhs * free_f[:, None]
+
+    # Cholesky of S + 1e-8 I; a factorisation that fails (S not SPD)
+    # gives a NaN solve, as JAX's does, and no exception or host sync.
+    L, info = torch.linalg.cholesky_ex(
+        S.reshape(C6, C6) + 1e-8 * torch.eye(C6, device=dev))
+    delta_cam = torch.cholesky_solve(rhs.reshape(C6, 1), L)
+    delta_cam = torch.where(info == 0, delta_cam, float("nan"))
+    return delta_cam.reshape(C, 6) * free_f[:, None]
+
+
+def _back_substitute(Vi: Tensor, rb: Tensor, pt_valid: Tensor) -> Tensor:
+    """The point updates (P, 3) = V*^-1 (eb - W^T delta_cam), from ``rb``
+    (3, P)."""
+    delta_pt = torch.stack(
+        [Vi[a, 0] * rb[0] + Vi[a, 1] * rb[1] + Vi[a, 2] * rb[2]
+         for a in range(3)], dim=1)
+    return delta_pt * pt_valid[:, None]
+
+
+def _trial(prob: BundleProblem, delta_cam, delta_pt, cam, sigma_sq,
+           mest_kind, good, new_bad, active):
+    """The trial state and its robust error (FindNewError) over
+    ``prob``'s measurements: (new_R, new_t, new_pt, error)."""
+    d_pose = se3lib.se3_exp(delta_cam)
+    new_R = d_pose.R @ prob.cam_R
+    new_t = (d_pose.R @ prob.cam_t[..., None])[..., 0] + d_pose.t
+    new_pt = prob.pt_pos + delta_pt
+    _, _, _, new_err_sq, nb = _project_meas(new_R, new_t, new_pt, prob, cam)
+    new_error = (torch.sum(torch.where(
+        good & ~nb, mest.objective(new_err_sq, sigma_sq, mest_kind), 0.0))
+        + torch.sum((new_bad | (active & nb)).to(torch.float32)))
+    return new_R, new_t, new_pt, new_error
+
+
+def _retry_and_accept(state: LMState, cfg: BundleConfig, try_lambda,
+                      current_error: Tensor, new_bad: Tensor):
+    """The lambda loop of a step and its outcome: ``try_lambda(lam)`` gives
+    (new_R, new_t, new_pt, upd_sq, new_error); a try that does not lower
+    the error raises lambda and retries, each try read on the host once.
+    Returns (the new LMState, its flags)."""
+    prob = state.problem
     lam, lam_factor = state.lam, state.lam_factor
     n_inner = 0
     while True:
         n_inner += 1
-        new_R, new_t, new_pt, conv, upd_sq, new_error = try_lambda(lam)
+        new_R, new_t, new_pt, upd_sq, new_error = try_lambda(lam)
+        conv = upd_sq < cfg.update_squared_convergence_limit
         # Numerical failure: no finite error even after lambda escalation,
         # or a non-finite baseline: the map is probably corrupt.
         failed = (~torch.isfinite(new_error) | ~torch.isfinite(current_error)
@@ -433,7 +476,7 @@ def lm_step_flags(state: LMState, cam: atan.Camera,
         cam_t=torch.where(accept, new_t, prob.cam_t),
         pt_pos=torch.where(accept, new_pt, prob.pt_pos),
         meas_bad=prob.meas_bad | new_bad)
-    return LMState(problem=new_prob, layout=lay, lam=lam,
+    return LMState(problem=new_prob, layout=state.layout, lam=lam,
                    lam_factor=lam_factor, converged=converged,
                    accepted=accepted, iters=iters, last_error=new_error,
                    failed=failed_all), tuple(read[1:])

@@ -44,8 +44,15 @@ an exception in the worker stops it and is raised by the next
 Not ported, on purpose: ``decision_interval``, the readiness-gated
 decision reads, the ``_inflight`` drain and the ``_wiggle_dev`` cache work
 around a networked TPU, where every blocking read costs ~20 ms; on a
-local card one read a frame is the design. ``mesh`` (point-sharded
-global BA) is not a parameter.
+local card one read a frame is the design.
+
+``mesh`` (a ``parallel.mesh.Mesh``): with more than one rank, global BA
+runs point-sharded over the ranks (``MapMaker``'s docstring), init's BA
+included. Every rank runs the same engine on the same frames, as JAX's
+processes do, and each rank's map stays whole: the sharded solve hands
+every rank all the adjusted points. The mapping worker times its passes
+by the host, and no value the ranks could share places one rank's passes
+where another's are, so a multi-rank mesh refuses ``async_mapping``.
 
 Draws are an input (``Draws``): the engine takes each random draw from one
 object, so a parity test can hand in JAX's.
@@ -151,15 +158,23 @@ class SLAMEngine:
     (``MapMaker``). ``draws``: the source of every random draw (default
     ``Draws(seed, device)``). ``async_mapping``: run the mapping passes
     on a worker thread (the module's docstring); call ``close()`` when
-    done, before the interpreter exits.
+    done, before the interpreter exits. ``mesh``, ``mesh_axis``: the
+    point-sharded global BA's ranks (``MapMaker``); a mesh of more than
+    one rank and ``async_mapping`` exclude each other.
     """
 
     def __init__(self, cfg: EngineConfig = EngineConfig(), image_size=None,
                  max_points: int = 2048, max_kfs: int = 16, seed: int = 0,
                  auto_init_frames: int | None = 6,
                  deterministic: bool | None = None, device="cuda",
-                 draws=None, async_mapping: bool = False):
+                 draws=None, async_mapping: bool = False, mesh=None,
+                 mesh_axis: str = "mp"):
         trklib.validate_config(cfg.tracker)
+        if (async_mapping and mesh is not None
+                and mesh.shape[mesh_axis] > 1):
+            raise ValueError("async_mapping times its passes by the host; "
+                             "a multi-rank mesh needs the synchronous "
+                             "engine")
         if cfg.frontend.atlas_bf16:
             raise NotImplementedError("FrontendConfig.atlas_bf16 is not ported")
         self.cfg = cfg
@@ -167,6 +182,8 @@ class SLAMEngine:
         self._seed = seed
         self._deterministic = deterministic
         self._capacity = (max_points, max_kfs)
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
         self.image_size = tuple(image_size or cfg.camera.image_size)
         self.cam = atan.make_camera(cfg.camera.params, self.image_size,
                                     self.device)
@@ -208,7 +225,8 @@ class SLAMEngine:
         self.mapmaker = mmlib.MapMaker(
             self.map, self.cam, self.image_size, self.cfg.mapmaker,
             self.cfg.bundle, seed=self._seed,
-            deterministic=self._deterministic)
+            deterministic=self._deterministic, mesh=self.mesh,
+            mesh_axis=self.mesh_axis)
         self.stage = Stage.NOT_STARTED
         self.tracker_state = trklib.init_tracker_state(device=self.device)
         self.trails = None

@@ -41,6 +41,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ptam_cg_tpu_torch.camera import atan
 from ptam_cg_tpu_torch.config import (MAX_MEAS_PER_KF, BundleConfig,
@@ -52,6 +53,7 @@ from ptam_cg_tpu_torch.models.map_state import MapState
 from ptam_cg_tpu_torch.ops import levels as levelops
 from ptam_cg_tpu_torch.ops import patch as patchops
 from ptam_cg_tpu_torch.ops.gather import gather_windows
+from ptam_cg_tpu_torch.parallel import sharded_ba
 from ptam_cg_tpu_torch.utils import geometry
 from ptam_cg_tpu_torch.utils import mest
 from ptam_cg_tpu_torch.utils import se3 as se3lib
@@ -500,6 +502,10 @@ def local_ba_masks(m: MapState, newest, n_neighbors: int = 4):
     return adjust, observers & ~adjust & m.kf_valid, pts
 
 
+#: The smallest BA point cap (``MapMaker._ba_caps``' first floor).
+_TIER_P_FLOOR = 1024
+
+
 def _pow2ceil(n: int) -> int:
     """Smallest power of two >= n (n >= 1)."""
     return 1 << (max(int(n), 1) - 1).bit_length()
@@ -780,8 +786,21 @@ class MapMaker:
     reference's abort flag does. Stereo init uses the BA, expansion and
     plane-alignment methods directly.
 
-    One device only: the JAX MapMaker's ``mesh`` (point-sharded global BA)
-    has no counterpart here, so the constructor takes none.
+    ``mesh``: a ``parallel.mesh.Mesh``. With more than one rank on it,
+    global BA runs point-sharded over its ranks (``parallel/
+    sharded_ba.py``): the extracted problem is sharded when its first
+    chunk starts, chunks go through ``sharded_ba.sharded_lm_chunk`` and the
+    result is unsharded before it is applied. Local BA stays on one rank.
+    Every rank runs the same MapMaker on the same inputs, so each host
+    decision that gates a collective must come out the same on every rank.
+    Deterministic mode has none that depends on timing. In latency mode
+    each is agreed over the mesh (``_agree``, one all_reduce on a host
+    scalar): a pass goes ahead only when the last dispatch has completed
+    on every rank (MIN), an integration's read lands only when it has
+    reached every rank's host (MIN), a keyframe queued on any rank aborts
+    BA (MAX), and the chunk sizer uses the slowest rank's chunk time
+    (MAX). The point capacity, and every power-of-two BA point cap, must
+    divide the mesh size (checked here).
 
     ``deterministic``: True makes every gate block and runs BA in fixed
     ``ba_steps_per_pass`` chunks, so a run is a pure function of its inputs
@@ -806,7 +825,8 @@ class MapMaker:
                  cfg: MapMakerConfig = MapMakerConfig(),
                  ba_cfg: BundleConfig = BundleConfig(),
                  max_ba_meas: int | None = None, seed: int = 0,
-                 deterministic: bool | None = None):
+                 deterministic: bool | None = None, mesh=None,
+                 mesh_axis: str = "mp"):
         self.map = m
         self.cam = cam
         self.image_size = image_size
@@ -816,6 +836,16 @@ class MapMaker:
         self.deterministic = (not m.point_pos.is_cuda if deterministic is None
                               else deterministic)
         K, P = m.meas_valid.shape
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        self._use_sharded = mesh is not None and mesh.shape[mesh_axis] > 1
+        if self._use_sharded:
+            D = mesh.shape[mesh_axis]
+            smallest = min(_TIER_P_FLOOR, _pow2ceil(P))
+            if P % D or smallest % D:
+                raise ValueError(
+                    f"point capacity {P} (BA point caps down to {smallest})"
+                    f" not divisible by mesh size {D}")
         #: Global-BA measurement capacity: keyframe capacity x the
         #: per-keyframe budget; past it extraction prioritizes and warns.
         self.max_ba_meas = (min(K * MAX_MEAS_PER_KF, K * P)
@@ -835,7 +865,7 @@ class MapMaker:
         # BA size tiers (power-of-two caps, see _ba_caps); the floors only
         # ratchet up (overflow escalation).
         self._tier_c_floor = 4
-        self._tier_p_floor = 1024
+        self._tier_p_floor = _TIER_P_FLOOR
         self._tier_m_floor = 4096
         #: Host-side live point-count estimate; the engine refreshes it.
         self._n_points_hint = 0
@@ -878,6 +908,13 @@ class MapMaker:
         #: first chunk ends.
         self._ba_step_ms = None
 
+    def _agree(self, value, op=dist.ReduceOp.MAX):
+        """A host decision every rank of a multi-rank mesh shares (``op``
+        over the ranks' values); ``value`` itself without one."""
+        if not self._use_sharded:
+            return value
+        return type(value)(self.mesh.agree(value, op))
+
     def _note_dispatch(self):
         """Record the scheduler's backpressure event after a mapping
         dispatch on the card (see ``step``)."""
@@ -893,9 +930,11 @@ class MapMaker:
 
     # -- BA: one run, started, then advanced chunk by chunk ---------------
     def bundle_adjust(self, adjust_kf, fixed_kf, point_mask, recent: bool,
-                      full: bool = False):
-        """A BA run to convergence or abort."""
-        self._ba_start(adjust_kf, fixed_kf, point_mask, recent, full)
+                      full: bool = False, sharded: bool = False):
+        """A BA run to convergence or abort; point-sharded over the mesh
+        with ``sharded``."""
+        self._ba_start(adjust_kf, fixed_kf, point_mask, recent, full,
+                       sharded)
         while self._ba_job is not None:
             self._ba_poll(block=True)
 
@@ -915,7 +954,7 @@ class MapMaker:
         return c_cap, p_cap, m_cap
 
     def _ba_start(self, adjust_kf, fixed_kf, point_mask, recent: bool,
-                  full: bool = False):
+                  full: bool = False, sharded: bool = False):
         """Extract the problem; the first LM chunk goes out at the next
         ``_ba_poll``."""
         caps = self._ba_caps()
@@ -924,12 +963,22 @@ class MapMaker:
         self._ba_job = dict(prob=prob, mk=mk, mp=mp, cam_idx=cam_idx,
                             pt_idx=pt_idx, adjust=adjust_kf, pmask=point_mask,
                             recent=recent, full=full, counts=counts,
-                            caps=caps, state=None, iters_done=0)
+                            caps=caps, state=None, iters_done=0,
+                            sharded=sharded)
         self._note_dispatch()
 
     def _ba_init_state(self):
         job = self._ba_job
-        job["state"] = bundlelib.init_lm(job.pop("prob"), self.ba_cfg)
+        prob = job.pop("prob")
+        if job["sharded"]:
+            # Shard on the host (reads the measurement table once a run).
+            shard, perm = sharded_ba.shard_problem(
+                prob, self.mesh, self.mesh_axis, return_perm=True)
+            job.update(orig_prob=prob, perm=perm)
+            job["state"] = sharded_ba.init_sharded_lm(shard, self.mesh,
+                                                      self.ba_cfg)
+        else:
+            job["state"] = bundlelib.init_lm(prob, self.ba_cfg)
         job["flags"] = bundlelib.INIT_FLAGS
         self._ba_dispatch_chunk()
 
@@ -958,9 +1007,14 @@ class MapMaker:
         job = self._ba_job
         t0 = time.perf_counter()
         job["iters_before"] = job["iters_done"]
-        job["state"], job["flags"] = bundlelib.lm_chunk(
-            job["state"], self.cam, self.ba_cfg, self._kind,
-            self._chunk_target(job), job["flags"])
+        if job["sharded"]:
+            job["state"], job["flags"] = sharded_ba.sharded_lm_chunk(
+                job["state"], self.mesh, self.cam, self.ba_cfg, self._kind,
+                self._chunk_target(job), job["flags"])
+        else:
+            job["state"], job["flags"] = bundlelib.lm_chunk(
+                job["state"], self.cam, self.ba_cfg, self._kind,
+                self._chunk_target(job), job["flags"])
         job["seconds"] = time.perf_counter() - t0
 
     def _ba_poll(self, block: bool = False):
@@ -972,7 +1026,7 @@ class MapMaker:
         if job["state"] is None:
             # Extracted, LM not started: a keyframe queued meanwhile
             # aborts for free.
-            if self.kf_queue and not block:
+            if self._agree(bool(self.kf_queue)) and not block:
                 self._ba_job = None
                 return False
             self._ba_init_state()
@@ -1001,8 +1055,10 @@ class MapMaker:
                     f"cover the full set.", RuntimeWarning, stacklevel=2)
         conv, iters, failed, accepted = job["flags"]
         n_new = iters - job["iters_before"]
-        if not self.deterministic and n_new > 0 and job["seconds"] < 5.0:
-            per_ms = job["seconds"] / n_new * 1000.0
+        if not self.deterministic and n_new > 0:
+            seconds = self._agree(job["seconds"])
+        if not self.deterministic and n_new > 0 and seconds < 5.0:
+            per_ms = seconds / n_new * 1000.0
             self._ba_step_ms = (per_ms if self._ba_step_ms is None
                                 else 0.7 * self._ba_step_ms + 0.3 * per_ms)
         job["iters_done"] = iters
@@ -1011,12 +1067,18 @@ class MapMaker:
             self.reset_requested = True
             self._ba_job = None
             return False
-        if not (conv or self.kf_queue
+        if not (conv or self._agree(bool(self.kf_queue))
                 or iters >= self.ba_cfg.max_iterations):
             self._ba_dispatch_chunk()
             return True
+        prob = job["state"].problem
+        if job["sharded"]:
+            # Back in extraction order, so the write-back indexes the
+            # outlier flags as the one-rank path does.
+            prob = sharded_ba.unshard_measurements(
+                job["orig_prob"], prob, job["perm"], self.mesh)
         self.map, self.failure_mask = apply_bundle_job(
-            self.map, job["state"].problem, job["mk"], job["mp"],
+            self.map, prob, job["mk"], job["mp"],
             job["adjust"], job["pmask"], self.failure_mask, job["cam_idx"],
             job["pt_idx"])
         self._note_dispatch()
@@ -1035,14 +1097,15 @@ class MapMaker:
 
     def bundle_adjust_all(self, full: bool = False, start_only: bool = False):
         """Global BA over every valid keyframe (BundleAdjustAll); fixed
-        keyframes stay fixed."""
+        keyframes stay fixed. Point-sharded with a multi-rank mesh."""
         valid = self.map.kf_valid
         adjust, fixed = valid & ~self.map.kf_fixed, valid & self.map.kf_fixed
         if start_only:
-            self._ba_start(adjust, fixed, self.map.point_valid, False, full)
+            self._ba_start(adjust, fixed, self.map.point_valid, False, full,
+                           self._use_sharded)
         else:
             self.bundle_adjust(adjust, fixed, self.map.point_valid, False,
-                               full)
+                               full, self._use_sharded)
 
     def bundle_adjust_recent(self, newest, start_only: bool = False):
         """Local BA (BundleAdjustRecent): the newest keyframe and its 4
@@ -1205,7 +1268,7 @@ class MapMaker:
         p = self._pending_integrate
         if p is None:
             return None
-        if not block and not p.ready():
+        if not block and not self._agree(p.ready(), dist.ReduceOp.MIN):
             return None
         slot, n_added = p.read()
         self._pending_integrate = None
@@ -1257,7 +1320,8 @@ class MapMaker:
         if self._last_dispatch is not None:
             if self.deterministic:
                 self._last_dispatch.synchronize()
-            elif not self._last_dispatch.query():
+            elif not self._agree(self._last_dispatch.query(),
+                                 dist.ReduceOp.MIN):
                 if self._pending_integrate is not None:
                     return self._drain_integrate()
                 return None

@@ -110,3 +110,42 @@ def bilinear_sample(im: Tensor, xy: Tensor, pad_value: float = 0.0):
     bot = v10 * (1 - fx) + v11 * fx
     vals = top * (1 - fy) + bot * fy
     return torch.where(valid, vals, torch.full_like(vals, pad_value)), valid
+
+
+def affine_warp_sample(im: Tensor, center: Tensor, A: Tensor,
+                       offsets: Tensor, pad_value: float = 0.0):
+    """Bilinear samples of ``im`` at center + A @ offset for each of the
+    (P, 2) ``offsets`` (CVD::transform's template warp,
+    src/PatchFinder.cc:98-127); ``A`` (2, 2), ``center`` (2,) as (x, y).
+    Returns (values (P,), valid (P,))."""
+    return bilinear_sample(im, center + offsets @ A.T, pad_value)
+
+
+def patch_offsets(size: int, device="cuda") -> Tensor:
+    """(size*size, 2) float32 offsets from the patch centre, row-major,
+    the centre at size // 2 (src/PatchFinder.cc:104-110)."""
+    c = size // 2
+    ys, xs = torch.meshgrid(torch.arange(size, device=device),
+                            torch.arange(size, device=device),
+                            indexing="ij")
+    return torch.stack([(xs - c).reshape(-1), (ys - c).reshape(-1)],
+                       dim=-1).to(torch.float32)
+
+
+def extract_patch(im: Tensor, center_xy: Tensor, size: int,
+                  pad_value: float = 0.0):
+    """The size x size patch whose top-left is the integer centre minus
+    size // 2 (GetImageROI, src/ImageProcess.cc:11-18). Returns (patch,
+    valid): a patch that would leave the image is read clamped inside it
+    and filled with ``pad_value``. No host read: the window is gathered
+    at tensor offsets."""
+    H, W = im.shape[-2], im.shape[-1]
+    c = center_xy.to(torch.int64)
+    x0 = c[0] - size // 2
+    y0 = c[1] - size // 2
+    valid = (x0 >= 0) & (y0 >= 0) & (x0 + size <= W) & (y0 + size <= H)
+    x0c = torch.clamp(x0, 0, W - size)
+    y0c = torch.clamp(y0, 0, H - size)
+    r = torch.arange(size, device=im.device)
+    patch = im[..., (y0c + r)[:, None], (x0c + r)[None, :]]
+    return torch.where(valid, patch, torch.full_like(patch, pad_value)), valid

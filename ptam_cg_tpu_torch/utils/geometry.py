@@ -1,7 +1,9 @@
 """Small geometry solvers (port of ``ptam_cg_tpu.utils.geometry``):
-``spd_solve``, DLT ``triangulate``, and the small symmetric eigen-solver
-``sym_eigh`` with what is built on it (``smallest_eigvec``, ``svd3``,
-``det3``). All in float32.
+``spd_solve``, the DLT triangulations (``triangulate``,
+``triangulate_new``, ``triangulate_depths``), the rigid alignments
+(``umeyama_icp``, ``horn_icp``), ``sampson_error``, and the small
+symmetric eigen-solver ``sym_eigh`` with what is built on it
+(``smallest_eigvec``, ``svd3``, ``det3``). All in float32.
 
 The DLT null space is the eigenvector of AᵀA for its smallest eigenvalue,
 as in the JAX package, but from a cyclic Jacobi eigen-solve of a fixed
@@ -19,6 +21,7 @@ import functools
 
 import torch
 
+from ptam_cg_tpu_torch.utils import se3 as se3lib
 from ptam_cg_tpu_torch.utils.se3 import SE3
 
 Tensor = torch.Tensor
@@ -222,3 +225,107 @@ def triangulate(se3_a_from_b: SE3, v2a: Tensor, v2b: Tensor) -> Tensor:
     w = v4[..., 3]
     w = torch.where(torch.abs(w) < 1e-5, torch.where(w < 0, -1e-5, 1e-5), w)
     return v4[..., :3] / w[..., None]
+
+
+def _cross_matrix(v3: Tensor) -> Tensor:
+    """Skew-symmetric cross-product matrices, (..., 3) -> (..., 3, 3)."""
+    x, y, z = v3[..., 0], v3[..., 1], v3[..., 2]
+    zero = torch.zeros_like(x)
+    return torch.stack([torch.stack([zero, -z, y], dim=-1),
+                        torch.stack([z, zero, -x], dim=-1),
+                        torch.stack([-y, x, zero], dim=-1)], dim=-2)
+
+
+def triangulate_new(se3_a_from_b: SE3, v2a: Tensor, v2b: Tensor) -> Tensor:
+    """Cross-product DLT triangulation (MapMaker::TriangulateNew,
+    src/MapMaker.cc:216-258): the null space of [v3a]x P_A stacked over
+    [v3b]x [I | 0], a 6x4 system. The point in frame B; broadcasts over
+    leading dims."""
+    R, t = se3_a_from_b.R, se3_a_from_b.t
+    one = torch.ones_like(v2a[..., :1])
+    v3a = torch.cat([v2a, one], dim=-1)
+    v3b = torch.cat([v2b, one], dim=-1)
+    PA = torch.cat([R, t[..., :, None]], dim=-1)            # (..., 3, 4)
+    eye34 = torch.eye(3, 4, dtype=v2a.dtype, device=v2a.device)
+    A = torch.cat([_cross_matrix(v3a) @ PA, _cross_matrix(v3b) @ eye34],
+                  dim=-2)                                    # (..., 6, 4)
+    v4 = _smallest_right_singular(A)
+    w = v4[..., 3]
+    w = torch.where(torch.abs(w) < 1e-5, torch.where(w < 0, -1e-5, 1e-5), w)
+    return v4[..., :3] / w[..., None]
+
+
+def triangulate_depths(se3_a_from_b: SE3, v2a: Tensor, v2b: Tensor):
+    """``triangulate`` and the point's depths: (point in B, depth in A,
+    depth in B)."""
+    p_b = triangulate(se3_a_from_b, v2a, v2b)
+    p_a = se3lib.apply(se3_a_from_b, p_b)
+    return p_b, p_a[..., 2], p_b[..., 2]
+
+
+def _centred(src: Tensor, dst: Tensor, mask: Tensor | None):
+    """Masked means and mean-free, masked points: (mu_s, mu_d, cs, cd,
+    count)."""
+    if mask is None:
+        mask = torch.ones(src.shape[:-1], dtype=torch.bool,
+                          device=src.device)
+    m = mask[..., None].to(src.dtype)
+    wsum = torch.clamp(torch.sum(mask.to(src.dtype), dim=-1), min=1.0)
+    mu_s = torch.sum(src * m, dim=-2) / wsum[..., None]
+    mu_d = torch.sum(dst * m, dim=-2) / wsum[..., None]
+    return (mu_s, mu_d, (src - mu_s[..., None, :]) * m,
+            (dst - mu_d[..., None, :]) * m, wsum)
+
+
+def umeyama_icp(src: Tensor, dst: Tensor, mask: Tensor | None = None) -> SE3:
+    """Rigid alignment dst ~ R src + t from the SVD of the
+    cross-covariance (cg::Tools::ComputeRtBySVD, src/Tools.cc:307-340);
+    ``mask`` selects the correspondences. The SVD is ``svd3``'s, which
+    cannot raise or sync."""
+    mu_s, mu_d, cs, cd, _ = _centred(src, dst, mask)
+    H = cs.transpose(-1, -2) @ cd                            # (..., 3, 3)
+    U, _, V = svd3(H)
+    d = det3(V @ U.transpose(-1, -2))
+    S = torch.diag_embed(torch.stack(
+        [torch.ones_like(d), torch.ones_like(d), d], dim=-1))
+    R = V @ S @ U.transpose(-1, -2)
+    return SE3(R, mu_d - (R @ mu_s[..., None])[..., 0])
+
+
+def horn_icp(src: Tensor, dst: Tensor, mask: Tensor | None = None) -> SE3:
+    """Rigid alignment dst ~ R src + t by Horn's quaternion method
+    (cg::Tools::ICP_QD, src/Tools.cc:349-431): the rotation quaternion is
+    the eigenvector of the 4x4 matrix Q of the cross-covariance
+    M = (1/n) sum d s^T with the largest eigenvalue (``sym_eigh``), and
+    t = mu_dst - R mu_src, as the JAX package returns it."""
+    mu_s, mu_d, cs, cd, wsum = _centred(src, dst, mask)
+    M = (cs.transpose(-1, -2) @ cd) / wsum[..., None, None]
+    delta = torch.stack([M[..., 1, 2] - M[..., 2, 1],
+                         M[..., 2, 0] - M[..., 0, 2],
+                         M[..., 0, 1] - M[..., 1, 0]], dim=-1)
+    tr = torch.diagonal(M, dim1=-2, dim2=-1).sum(-1)
+    eye3 = torch.eye(3, dtype=M.dtype, device=M.device)
+    sym = M + M.transpose(-1, -2) - tr[..., None, None] * eye3
+    top = torch.cat([tr[..., None, None], delta[..., None, :]], dim=-1)
+    bottom = torch.cat([delta[..., :, None], sym], dim=-1)
+    vals, vecs = sym_eigh(torch.cat([top, bottom], dim=-2))
+    k = torch.argmax(vals, dim=-1)
+    q = torch.gather(vecs, -1, k[..., None, None].expand(
+        *vecs.shape[:-1], 1))[..., 0]                        # (w, x, y, z)
+    R = se3lib.rot_from_quat(q)
+    return SE3(R, mu_d - (R @ mu_s[..., None])[..., 0])
+
+
+def sampson_error(essential: Tensor, v2a: Tensor, v2b: Tensor) -> Tensor:
+    """First-order geometric (Sampson) error of z=1-plane correspondences
+    under an essential matrix (SampsonusError,
+    src/HomographyInit.cc:346-360); broadcasts over batches."""
+    one_b = torch.ones_like(v2b[..., :1])
+    x1 = torch.cat([v2b, one_b], dim=-1)
+    x2 = torch.cat([v2a, torch.ones_like(v2a[..., :1])], dim=-1)
+    Ex1 = (essential @ x1[..., None])[..., 0]
+    Etx2 = (essential.transpose(-1, -2) @ x2[..., None])[..., 0]
+    err = torch.sum(x2 * Ex1, dim=-1)
+    denom = (Ex1[..., 0] ** 2 + Ex1[..., 1] ** 2
+             + Etx2[..., 0] ** 2 + Etx2[..., 1] ** 2)
+    return err * err / torch.clamp(denom, min=1e-12)

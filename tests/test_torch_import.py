@@ -69,7 +69,10 @@ SCANNED = ("models/tracker.py", "models/keyframe.py", "models/mapmaker.py",
            "utils/evaluate.py", "io/synth.py", "io/from_jax.py",
            "io/tum.py", "io/settings.py", "io/checkpoint.py",
            "io/commands.py", "native/__init__.py", "viz/mapviewer.py",
-           "viz/ar.py", "apps/run_tum.py", "apps/run_synthetic.py")
+           "viz/ar.py", "apps/run_tum.py", "apps/run_synthetic.py",
+           "parallel/mesh.py", "parallel/sharded_ba.py",
+           "camera/calibrator.py", "apps/run_calib.py",
+           "apps/make_synth_tum.py")
 
 
 def test_source_scan_covers_every_slice():
@@ -89,9 +92,11 @@ def test_no_source_line_imports_the_jax_package():
 
 
 def _entry_points():
-    from ptam_cg_tpu_torch.camera import atan
+    from ptam_cg_tpu_torch.camera import atan, calibrator
     from ptam_cg_tpu_torch.io import checkpoint, from_jax, synth
     from ptam_cg_tpu_torch.models import engine, map_state, tracker
+    from ptam_cg_tpu_torch.ops import image
+    from ptam_cg_tpu_torch.parallel import mesh
     from ptam_cg_tpu_torch.viz import ar
     return [atan.make_camera, map_state.empty_map, synth.make_texture,
             tracker.init_tracker_state, engine.SLAMEngine, engine.Draws,
@@ -105,7 +110,11 @@ def _entry_points():
             from_jax.trail_state_from_numpy, from_jax.matches_from_numpy,
             from_jax.homography_result_from_numpy,
             synth.ba_problem, synth.ba_map, checkpoint.load_map,
-            checkpoint.load_ba_state, ar.make_cube]
+            checkpoint.load_ba_state, ar.make_cube,
+            calibrator.make_corner_refiner, calibrator.CalibImage,
+            calibrator.CameraCalibrator, image.patch_offsets,
+            synth.default_blocks, synth.loop_trajectory,
+            mesh.make_map_mesh, mesh.make_hybrid_mesh]
 
 
 def test_entry_points_default_to_the_card():
@@ -115,9 +124,12 @@ def test_entry_points_default_to_the_card():
 
 
 def test_apps_default_to_the_card():
-    from ptam_cg_tpu_torch.apps import run_synthetic, run_tum
+    from ptam_cg_tpu_torch.apps import (make_synth_tum, run_calib,
+                                        run_synthetic, run_tum)
     assert run_tum.parse_args(["data"]).device == "cuda"
     assert run_synthetic.parse_args([]).device == "cuda"
+    assert run_calib.parse_args(["--synthetic", "2"]).device == "cuda"
+    assert make_synth_tum.parse_args(["out"]).device == "cuda"
 
 
 def test_empty_map_and_make_camera_ask_for_cuda():
