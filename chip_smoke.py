@@ -112,19 +112,22 @@ Phases, each fatal on failure:
    Timed: ``trail_advance`` a frame, ``homography.compute``, the whole
    ``init_from_stereo`` with its BA-run count, and ``attempt_recovery``.
 11. the engine, ``SLAMEngine.process_frame``, on bench_engine.py's 240
-   frames at 640x480 (uint8 from the host): 11a deterministic, 11b card
-   against CPU, 11c the card's latency mode (frame latency, FPS, host
-   reads, busy share), 11d relocalization and the poisoned-map reset,
-   11e tests/test_slam_e2e.py's orbit at its pace, where integrations add
-   points, card against CPU;
+   frames at 640x480 (uint8 from the host), replaying its programs as
+   CUDA graphs (phase 17): 11a deterministic, 11b card against CPU, 11c
+   the card's latency mode (frame latency, FPS, host reads, busy share;
+   then the same frames with the programs run eagerly, p50, p95 and FPS
+   beside the graphed ones), 11d relocalization (each also run eagerly on
+   its inputs) and the poisoned-map reset, 11e tests/test_slam_e2e.py's
+   orbit at its pace, where integrations add points, card against CPU;
 12. the engine with its mapping worker (``async_mapping=True``) on the
    same frames in latency mode: the bars of tests/test_async_mapping.py
    and the e2e's ATE, its latency, FPS, mapping passes, map copies (and
    one copy's device time) and busy share beside 11c's, and the kernels'
    launches by CUDA stream (K2's integration launches on the mapping
-   stream, the rest on the tracking thread's); 12b: 11e's orbit with the
-   worker (the map grows), a reset while a pass is in flight (the map
-   stays empty until the next init) and ``close()`` within 10 s;
+   stream, the rest on the tracking thread's), then the programs run
+   eagerly beside; 12b: 11e's orbit with the worker (the map grows), a
+   reset while a pass is in flight (the map stays empty until the next
+   init) and ``close()`` within 10 s;
 13. the dataset entry point: 11e's first 60 frames written as a TUM
    dataset (``io/tum.py``), read by the native frame pump (each frame
    equal to its file), and ``apps.run_tum`` with ``--native``, a settings
@@ -155,7 +158,19 @@ Phases, each fatal on failure:
    optimization from the card's grids within CALIB_* of the card's;
    ``apps.make_synth_tum --nonplanar`` (60 frames) then ``apps.run_tum
    --native`` on it, ATE under 8% of the span
-   (tests/test_slam_nonplanar.py's bar).
+   (tests/test_slam_nonplanar.py's bar);
+17. the engine's programs (``models/programs.py``) as CUDA graphs
+   against the same programs run eagerly on the card: the tracking
+   program on phase 4's 60 frames (pose, found set, info vector and the
+   new counts bit for bit, or within eager's own run-to-run spread,
+   which is printed), the keyframe build on phase 6's keyframe frame
+   (every field), the relocalizer on 11d's relocalizations; each graph
+   holds the K1-K3 launches its capture recorded (counted in its
+   Graphviz dump) and its capture called no plain version. Each
+   program's capture s, graph nodes against an eager call's kernels, a
+   replay's ms by CUDA events and by the host clock and device us, the
+   eager call's beside; the 14 TrackView copies' device us; and a
+   tracked frame's launches and copies outside its one graph replay.
 The line before the last is a JSON summary of the kernels (numbers summed
 over a tracked frame's calls, K3's over a keyframe's;
 ``launches_by_stream_async``: phase 12's launches by CUDA stream); the
@@ -1101,8 +1116,13 @@ class HostDraws:
     def reset_mapmaker(self):
         self.base.reset_mapmaker()
 
-    def track(self, n):
-        return tuple(u.to(self.device) for u in self.base.track(n))
+    def track(self, n, out=None):
+        drawn = self.base.track(n)
+        if out is None:
+            return tuple(u.to(self.device) for u in drawn)
+        for buf, u in zip(out, drawn):
+            buf.copy_(u)
+        return out
 
     def mlesac(self, trials, n):
         return self.base.mlesac(trials, n).to(self.device)
@@ -1114,13 +1134,19 @@ class HostDraws:
 class CallCounts:
     """Counts the calls of module functions while active (each patched
     with a counting wrapper, restored on exit): ``n`` by function, and
-    ``mapping`` the calls made on the engine's mapping thread."""
+    ``mapping`` the calls made on the engine's mapping thread. A call
+    made while a program is being captured runs nothing and is not
+    counted; each replay of a program (``programs.replays``) counts, on
+    exit, as a call of the function it replays."""
 
     def __init__(self, targets):
         self.targets, self.n = targets, {name: 0 for _, name in targets}
         self.mapping = dict.fromkeys(self.n, 0)
 
     def __enter__(self):
+        from ptam_cg_tpu_torch.models import programs
+        self.programs = programs
+        self.replays = dict(programs.replays)
         self.saved = []
         for mod, name in self.targets:
             fn = getattr(mod, name)
@@ -1130,9 +1156,10 @@ class CallCounts:
                 # No function runs on both threads at once: init runs the
                 # mapping jobs on the tracking thread while no mapping
                 # pass runs, so no count is lost.
-                if threading.current_thread().name == "mapping":
-                    self.mapping[_name] += 1
-                self.n[_name] += 1
+                if not programs.capturing():
+                    if threading.current_thread().name == "mapping":
+                        self.mapping[_name] += 1
+                    self.n[_name] += 1
                 return _fn(*a, **kw)
             setattr(mod, name, wrapped)
         return self
@@ -1140,6 +1167,9 @@ class CallCounts:
     def __exit__(self, *exc):
         for mod, name, fn in self.saved:
             setattr(mod, name, fn)
+        for name in self.n:
+            self.n[name] += (self.programs.replays.get(name, 0)
+                             - self.replays.get(name, 0))
 
 
 MAPMAKER_JOBS = ("integrations", "points integrated", "local BA",
@@ -1294,6 +1324,36 @@ def expected_launches(n):
             + 2 * n["refind_in_kf"] + 3 * n["add_points_epipolar"]
             + n["trail_start"] + 3 * n["trail_advance"]
             + 2 * n["init_from_stereo"]}
+
+
+def compare_relocs(eng, torch):
+    """Run each of ``eng``'s relocalizations also through an eager
+    ``RelocProgram`` on the same inputs; the returned list gets, for each,
+    (frame, equal in pose, best keyframe, score and success, success,
+    the inputs: the five tables and the SBI, cloned)."""
+    from ptam_cg_tpu_torch.models import programs
+    found, run_prog = [], eng._run
+
+    def comparing(prog, *args):
+        out = run_prog(prog, *args)
+        if isinstance(prog, programs.RelocProgram):
+            m, sbi = args
+            eager = programs.RelocProgram(
+                eng.cfg, eng.image_size, cam_params=eng.cam_params,
+                capacity=eng._capacity, device=eng.device, graphs=False)
+            e = eager(m, sbi)
+            same = (torch.equal(out.pose.R, e.pose.R)
+                    and torch.equal(out.pose.t, e.pose.t)
+                    and torch.equal(out.best_kf, e.best_kf)
+                    and torch.equal(out.score, e.score)
+                    and torch.equal(out.success, e.success))
+            found.append((eng.frame_idx, same, bool(out.success), (
+                programs.RelocView(*(getattr(m, f).clone()
+                                     for f in programs.RelocView._fields)),
+                type(sbi)(sbi.template.clone(), sbi.jac.clone()))))
+        return out
+    eng._run = comparing
+    return found
 
 
 def run(eng, ims, times=None):
@@ -1463,6 +1523,19 @@ def engine(torch, dev, card, kernels, reset_counts, counts):
           f"{busy_us / 1e6 / prof_wall * 100:.1f}% busy; launches {launches}"
           f"  [{card}]")
     engine_outcome(lat, seq, torch, "11c")
+    # The same frames with the programs run eagerly, in this process.
+    eager, times_e = make(dev, graphs=False), []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lat_e = run(eager, frames[:n_main], times_e)
+    torch.cuda.synchronize()
+    c_e = latency_stats(lat_e, times_e)
+    c_e.update(fps=n_main / (time.perf_counter() - t0))
+    print(f"[11c] graphed vs eager programs, frames 0..{n_main - 1}: p50 "
+          f"{c['p50']:.1f} vs {c_e['p50']:.1f} ms, p95 {c['p95']:.1f} vs "
+          f"{c_e['p95']:.1f} ms, {c['fps']:.2f} vs {c_e['fps']:.2f} FPS "
+          f"({c['n']} / {c_e['n']} frames, keyframes apart)  [{card}]")
+    engine_outcome(lat_e, seq, torch, "11c eager")
 
     # ---- 11d. relocalization and reset (tests/test_engine_reloc.py) ----
     rseq = synth.SyntheticSequence(REF_PARAMS, image_size=SIZE, device=dev,
@@ -1471,6 +1544,7 @@ def engine(torch, dev, card, kernels, reset_counts, counts):
                for i in range(RELOC_SEQ["n_frames"])]
     eng = make(dev, cand_min=INIT_CAND_MIN, capacity=dict(
         INIT_MAP, auto_init_frames=6, seed=0), deterministic=True)
+    relocs = compare_relocs(eng, torch)
     info = run(eng, rframes[:12])[-1]
     check(info.stage == "TRACKING" and info.quality == 2,
           f"11d: not GOOD after 12 frames: {info}")
@@ -1492,6 +1566,7 @@ def engine(torch, dev, card, kernels, reset_counts, counts):
           "tracking")
     check(relocalized and back[-1].quality == 2 and back[-1].n_found > 50,
           "11d: no relocalization back to GOOD within 8 frames")
+    check(relocs, "11d: no relocalization ran")
     eng = make(dev, cand_min=INIT_CAND_MIN, capacity=dict(
         INIT_MAP, auto_init_frames=6, seed=0), deterministic=True)
     info = run(eng, rframes[:10])[-1]
@@ -1582,7 +1657,7 @@ def engine(torch, dev, card, kernels, reset_counts, counts):
           "11e: card and CPU engine poses differ")
     return dict(frames=frames, seq=seq, gframes=gframes, gseq=gseq,
                 make=make, run=run, targets=targets, expected=expected,
-                sync=c, grown=card_g, grown_times=gtimes)
+                sync=c, grown=card_g, grown_times=gtimes, relocs=relocs)
 
 
 def wait_for(cond, seconds=30.0):
@@ -1738,6 +1813,21 @@ def async_engine(torch, dev, card, kernels, reset_counts, counts, mods, ph11):
           f"{2 * nbytes / HBM_BYTES_S * 1e6:.2f} us  [{card}]")
     async_outcome(infos, seq, torch, "12")
     check(close_s < 10.0, "12: close() did not join within 10 s")
+    # The same frames with the programs run eagerly, in this process.
+    eager, times_e = make(dev, async_mapping=True, graphs=False), []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    infos_e = run(eager, frames[:n_main], times_e)
+    torch.cuda.synchronize()
+    a_e = latency_stats(infos_e, times_e)
+    a_e.update(fps=n_main / (time.perf_counter() - t0))
+    eager.close()
+    print(f"[12] graphed vs eager programs with the worker, frames "
+          f"0..{n_main - 1}: p50 {a['p50']:.1f} vs {a_e['p50']:.1f} ms, p95 "
+          f"{a['p95']:.1f} vs {a_e['p95']:.1f} ms, {a['fps']:.2f} vs "
+          f"{a_e['fps']:.2f} FPS ({a['n']} / {a_e['n']} frames, keyframes "
+          f"apart)  [{card}]")
+    async_outcome(infos_e, seq, torch, "12 eager")
 
     # ---- 12b. 11e's orbit: integrations add points; a reset mid-pass ----
     gframes, gseq = ph11["gframes"], ph11["gseq"]
@@ -2343,6 +2433,266 @@ def meshed_engine(torch, dev, card, kernels, ph11):
     for name, n in launches.items():
         kernels[name]["launches"] += n
         kernels[name]["launches_mesh_rank0"] = n
+
+
+PROGRAM_KERNELS = {"fast10": (r"\d+fast10_atlas_kernel",),
+                   "gather_windows": (r"\d+gather_kernel",
+                                      r"\d+gather_pair_kernel"),
+                   "shi_tomasi": (r"\d+shi_tomasi_atlas_kernel",)}
+#: A tracked frame's launches and copies besides its graph replay.
+OUTSIDE_LAUNCHES = 22
+RUNTIME_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                    "cuLaunchKernel", "cuLaunchKernelEx", "cudaMemcpyAsync",
+                    "cudaMemsetAsync", "cudaGraphLaunch")
+
+
+def dot_nodes(path):
+    """(nodes, {kernel: nodes launching it}) of a CUDA graph's DOT dump
+    (``CUDAGraph.debug_dump``), by the kernels' mangled names."""
+    import re
+    text = open(path).read()
+    # A node's line starts with its name and "["; an edge's with "->".
+    starts = [mt.start() for mt in re.finditer(
+        r'^\s*"graph_\d+_node_\d+"\s*\[', text, re.M)]
+    blocks = [text[a:b] for a, b in zip(starts, starts[1:] + [len(text)])]
+    return len(blocks), {name: sum(any(re.search(p, b) for p in pats)
+                                   for b in blocks)
+                         for name, pats in PROGRAM_KERNELS.items()}
+
+
+class PlainCalls:
+    """Counts calls of the kernels' plain versions while active."""
+
+    def __init__(self, mods):
+        self.targets = [(mods["fast10"], "fast_atlas_plain"),
+                        (mods["gather_windows"], "gather_windows_plain"),
+                        (mods["gather_windows"], "gather_window_pair_plain"),
+                        (mods["shi_tomasi"], "shi_tomasi_atlas_plain")]
+        self.n = 0
+
+    def __enter__(self):
+        self.saved = [(mod, name, getattr(mod, name))
+                      for mod, name in self.targets]
+        for mod, name, fn in self.saved:
+            def wrapped(*a, _fn=fn, **kw):
+                self.n += 1
+                return _fn(*a, **kw)
+            setattr(mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def program_numbers(torch, card, mods, tag, graphed, eager, want):
+    """Phase 17's numbers of one program, filled and called once each:
+    capture s, graph nodes (and those of K1-K3, equal to the launches the
+    capture recorded and to ``want``), a replay's ms by CUDA events and
+    by the host clock, device us; the eager call's launches, ms and
+    device us beside them."""
+    g = graphed.graph
+    nodes, by_kernel = dot_nodes(graphed.debug_path)
+    tally = {name: g.launches.get(mod, 0) for name, mod in mods.items()}
+    r_ms = time_ms(lambda _: graphed.run(), torch)
+    r_host = host_ms(graphed.run, torch)
+    r_us, r_n = device_us(lambda _: graphed.run(), torch, n=5)
+    e_ms = time_ms(lambda _: eager.run(), torch, reps=5)
+    e_host = host_ms(eager.run, torch, reps=5)
+    e_us, e_n = device_us(lambda _: eager.run(), torch, n=3)
+    print(f"[17] {tag}: capture {g.capture_s:.3f} s; {nodes} graph nodes "
+          f"({by_kernel} of K1-K3; the capture recorded {tally}) against "
+          f"{e_n:.0f} kernels an eager call; a replay {r_ms:.3f} ms (CUDA "
+          f"events), {r_host:.3f} ms (host clock), device {fmt_us(r_us)} "
+          f"in {r_n:.0f} kernels; eager {e_ms:.3f} ms (CUDA events), "
+          f"{e_host:.3f} ms (host clock), device {fmt_us(e_us)}  [{card}]")
+    check(tally == want and by_kernel == want,
+          f"17: {tag}'s graph holds {by_kernel} K1-K3 nodes, its capture "
+          f"recorded {tally}; want {want}")
+
+
+def outside_launches(torch, ph11, dev):
+    """The host's launches and copies of one steady tracked frame of a
+    graphed engine (11c's frames), outside the mapping pass, by the op
+    that made them (torch.profiler's runtime-API rows)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    eng = ph11["make"](dev)
+    frames = ph11["frames"]
+    ph11["run"](eng, frames[:30])
+    step = eng.mapmaker.step
+
+    def marked(*a, **kw):
+        with record_function("mapping pass"):
+            return step(*a, **kw)
+    eng.mapmaker.step = marked
+    for k in range(30, 40):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            info = eng.process_frame(frames[k])
+            torch.cuda.synchronize()
+        if info.stage == "TRACKING" and not info.added_kf:
+            break
+    made = {}
+    for e in prof.events():
+        if e.name not in RUNTIME_LAUNCHES:
+            continue
+        chain, up = [], e.cpu_parent
+        while up is not None:
+            chain.append(up.name)
+            up = up.cpu_parent
+        if "mapping pass" in chain:
+            continue
+        by = f"{e.name} <- {chain[0] if chain else '?'}"
+        made[by] = made.get(by, 0) + 1
+    return k, made
+
+
+def programs_phase(torch, dev, card, mods, seq, m, ff0, frames, im_kf,
+                   ph11):
+    """Phase 17: the engine's programs (``models/programs.py``) as CUDA
+    graphs against the same programs run eagerly on the card: the
+    tracking program on phase 4's map and frames (bit for bit, or within
+    eager's own run-to-run spread), the keyframe build on phase 6's
+    keyframe frame, the relocalizer on 11d's lost frames; each program's
+    capture, nodes, replay and eager times; the host's launches of a
+    tracked frame outside the replay, and the view copy's device time."""
+    import os
+    import tempfile
+    from ptam_cg_tpu_torch.config import (CameraConfig, EngineConfig,
+                                          MapMakerConfig)
+    from ptam_cg_tpu_torch.models import map_state as ms
+    from ptam_cg_tpu_torch.models import programs, tracker
+    from ptam_cg_tpu_torch.utils import tree
+    cfg = EngineConfig(
+        camera=CameraConfig(params=REF_PARAMS, image_size=SIZE),
+        mapmaker=MapMakerConfig(candidate_min_shi_tomasi_score=CAND_MIN))
+    cam_params = torch.tensor(REF_PARAMS, device=dev)
+    capacity = (m.point_pos.shape[0], m.kf_R.shape[0])
+    tmpdir = tempfile.TemporaryDirectory()      # the graphs' dumps
+    tmp = tmpdir.name
+
+    def make(cls, graphs, dtype=torch.float32, cap=capacity):
+        return cls(cfg, SIZE, seq.cam, cam_params, cap, dtype, device=dev,
+                   graphs=graphs, debug_path=os.path.join(
+                       tmp, f"{cls.__name__}.dot") if graphs else None)
+
+    # ---- the tracking program on phase 4's frames ----
+    gen = torch.Generator(device=dev).manual_seed(17)
+    P = capacity[0]
+    uniforms = [(torch.rand(P, generator=gen, device=dev),
+                 torch.rand(P, generator=gen, device=dev)) for _ in frames]
+
+    def track_run(prog):
+        state = tracker.init_tracker_state(seq.pose(0), seed=0)
+        prev, outs = ff0.sbi_track, []
+        for im, (rc, rf) in zip(frames, uniforms):
+            fo, inl, outl, info = prog(state, m, im, prev, rc, rf, 1.0)
+            state, prev = fo.state, fo.sbi_track
+            res = fo.result
+            outs.append((state.pose.R.clone(), state.pose.t.clone(),
+                         (res.meas_point * res.meas_valid
+                          - (~res.meas_valid).long()).clone(),
+                         info.clone(), inl.clone(), outl.clone()))
+        return outs
+
+    with PlainCalls(mods) as plain:
+        graphed = make(programs.TrackProgram, True)
+        g_outs = track_run(graphed)
+    check(plain.n == 0, f"17: the tracking program called the kernels' "
+          f"plain versions {plain.n} times")
+    e_runs = [track_run(make(programs.TrackProgram, False))
+              for _ in range(2)]
+
+    def diffs(a, b):
+        """(frames differing, max |dR|, max |dt|, found-set entries
+        differing, info or counts differing)."""
+        n_frames = d_R = d_t = n_found = n_info = 0
+        for x, y in zip(a, b):
+            same = all(torch.equal(u, v) for u, v in zip(x, y))
+            n_frames += not same
+            d_R = max(d_R, max_abs_diff(x[0], y[0]))
+            d_t = max(d_t, max_abs_diff(x[1], y[1]))
+            n_found += int((x[2] != y[2]).sum())
+            n_info += not all(torch.equal(u, v) for u, v in
+                              zip(x[3:], y[3:]))
+        return n_frames, d_R, d_t, n_found, n_info
+    spread = diffs(e_runs[0], e_runs[1])
+    got = diffs(g_outs, e_runs[0])
+    print(f"[17] tracking program on phase 4's {len(frames)} frames, replay "
+          f"vs eager (frames differing, |dR|, |dt|, found-set entries, "
+          f"info/count vectors): {got}; eager vs eager: {spread}")
+    check(got == (0, 0.0, 0.0, 0, 0) or (
+        got[1] <= spread[1] and got[2] <= spread[2]
+        and got[3] <= spread[3] and got[4] <= spread[4]),
+        "17: the tracking program's replays differ from the eager step "
+        "beyond eager's own spread")
+    program_numbers(torch, card, mods, "tracking program", graphed,
+                    make(programs.TrackProgram, False),
+                    {"fast10": 1, "gather_windows": 4, "shi_tomasi": 0})
+    # The 14 view copies of a tracked frame, at the engine's capacity.
+    eng_prog = make(programs.TrackProgram, False,
+                    cap=(ENG_MAP["max_points"], ENG_MAP["max_kfs"]))
+    src = tracker.make_track_view(ms.empty_map(
+        SIZE, ENG_MAP["max_points"], ENG_MAP["max_kfs"], dev))
+    nbytes = sum(t.numel() * t.element_size() for t in src)
+
+    def copies(_):
+        for buf, x in zip(eng_prog.view, src):
+            buf.copy_(x)
+    c_us, c_n = device_us(copies, torch)
+    print(f"[17] the 14 TrackView copies at {ENG_MAP['max_points']} points "
+          f"and {ENG_MAP['max_kfs']} keyframes ({nbytes / 1e6:.2f} MB): "
+          f"device {fmt_us(c_us)} in {c_n:.0f} kernels, bound (read + "
+          f"write at the HBM rate) {2 * nbytes / HBM_BYTES_S * 1e6:.2f} us"
+          f"  [{card}]")
+
+    # ---- the keyframe build on phase 6's keyframe frame ----
+    with PlainCalls(mods) as plain:
+        b_graph = make(programs.BuildProgram, True)
+        fg = b_graph(im_kf)
+    b_eager = make(programs.BuildProgram, False)
+    fe = b_eager(im_kf)
+    same = [f.name for f in dataclasses.fields(fg) if not all(
+        torch.equal(a, b) for a, b in zip(tree.tensors(getattr(fg, f.name)),
+                                          tree.tensors(getattr(fe, f.name))))]
+    print(f"[17] keyframe build of phase 6's frame {N_TRACK_KF}: replay vs "
+          f"eager, fields differing: {same}; plain-version calls in the "
+          f"capture {plain.n}")
+    check(not same and plain.n == 0, "17: the build program differs from "
+          "the eager build")
+    program_numbers(torch, card, mods, "keyframe build", b_graph, b_eager,
+                    {"fast10": 1, "gather_windows": 0, "shi_tomasi": 1})
+
+    # ---- the relocalizer on 11d's lost frames ----
+    relocs = ph11["relocs"]
+    print(f"[17] 11d's relocalizations, replay vs eager on the same inputs "
+          f"(frame, equal, success): {[r[:3] for r in relocs]}")
+    check(relocs and all(r[1] for r in relocs), "17: a relocalization's "
+          "replay differs from the eager call")
+    view, sbi = relocs[0][3]
+    r_cap = (1, view.kf_R.shape[0])
+    r_graph, r_eager = (make(programs.RelocProgram, g, None, r_cap)
+                        for g in (True, False))
+    r_graph(view, sbi)
+    r_eager(view, sbi)
+    program_numbers(torch, card, mods, "relocalizer", r_graph, r_eager,
+                    {"fast10": 0, "gather_windows": 0, "shi_tomasi": 0})
+
+    # ---- the host's launches of a tracked frame outside the replay ----
+    k, made = outside_launches(torch, ph11, dev)
+    n_graph = sum(v for key, v in made.items()
+                  if key.startswith("cudaGraphLaunch"))
+    n_other = sum(made.values()) - n_graph
+    print(f"[17] frame {k} of 11c's engine (tracked, graphed): {n_graph} "
+          f"graph launch and {n_other} other launches and copies outside "
+          f"the mapping pass (want {OUTSIDE_LAUNCHES}: the 14 TrackView "
+          f"copies, the frame's copy, the 2 uniform draws, the info read, "
+          f"the map's 2 new counts and FrameInfo's 2 pose copies), by op: "
+          f"{made}  [{card}]")
+    check(n_graph == 1 and n_other == OUTSIDE_LAUNCHES,
+          "17: a tracked frame's launches outside its graph differ")
+    tmpdir.cleanup()
 
 
 def calibration_and_scene(torch, dev, card):
@@ -3122,6 +3472,10 @@ def main():
 
     # ---- 16. the calibrator and the nonplanar scene ----
     calibration_and_scene(torch, dev, card)
+
+    # ---- 17. the engine's programs as CUDA graphs ----
+    programs_phase(torch, dev, card, mods, seq, m, ff0, frames,
+                   frames[N_TRACK_KF - 1], ph11)
 
     check(not any(k == "jax" or k.startswith("jax.") for k in sys.modules),
           "jax was imported")

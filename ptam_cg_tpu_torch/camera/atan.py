@@ -93,9 +93,13 @@ def make_camera(params, image_size: Tuple[int, int],
     c1 = unproject(size / 2.0 + 1.0, cam)
     cam.one_pixel_dist = torch.linalg.vector_norm(c0 - c1) / math.sqrt(2.0)
     # The UFB's linear bounds (src/ATANCamera.cc:77-103).
-    corners = unproject(torch.tensor(
-        [[-0.5, -0.5], [W - 0.5, -0.5], [W - 0.5, H - 0.5], [-0.5, H - 0.5]],
-        dtype=torch.float32, device=dev), cam)
+    # From device fills: a tensor of a Python list is a host-to-device
+    # copy, which a CUDA graph cannot capture (``se3_from_se2`` makes a
+    # camera inside the tracking program).
+    x0, x1, y1 = (p.new_full((), v) for v in (-0.5, W - 0.5, H - 0.5))
+    corners = unproject(torch.stack([
+        torch.stack([x0, x0]), torch.stack([x1, x0]), torch.stack([x1, y1]),
+        torch.stack([x0, y1])]), cam)
     cam.implane_tl = corners.min(0).values
     cam.implane_br = corners.max(0).values
     cam.ufb_linear_focal = 1.0 / (cam.implane_br - cam.implane_tl)

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ptam_cg_tpu_torch.camera import atan
+from ptam_cg_tpu_torch.models import programs
 from ptam_cg_tpu_torch.ops import fast as fastops
 from ptam_cg_tpu_torch.ops import image as imops
 from ptam_cg_tpu_torch.utils import se3 as se3lib
@@ -224,7 +225,7 @@ def make_corner_refiner(im_shape: Tuple[int, int], patch_size: int = 20,
               & (torch.abs(gain) > 20.0) & (err < 25.0))
         return pos, angles, mean, gain, ok
 
-    graphs = {}     # batch size -> (graph, its static input and outputs)
+    graphs = {}     # batch size -> programs.Graph
 
     def refine(im, pos0, angles0, mean0, gain0):
         theta = torch.cat([pos0, angles0, mean0[:, None], gain0[:, None]],
@@ -236,29 +237,13 @@ def make_corner_refiner(im_shape: Tuple[int, int], patch_size: int = 20,
         # call of each batch size and replayed on copies of the inputs.
         n = theta.shape[0]
         if n not in graphs:
-            graphs[n] = _capture(fit, im, theta)
-        graph, static, outs = graphs[n]
-        static[0].copy_(im)
-        static[1].copy_(theta)
-        graph.replay()
-        return tuple(o.clone() for o in outs)
+            graphs[n] = programs.Graph(fit, (im.clone(), theta.clone()))
+        graph = graphs[n]
+        for buf, x in zip(graph.inputs, (im, theta)):
+            programs.fill(buf, x)
+        return tuple(o.clone() for o in graph.replay())
 
     return refine
-
-
-def _capture(fn, *args):
-    """A CUDA graph of ``fn`` on copies of ``args``, after one warm-up run
-    on a side stream: (graph, the static inputs, the static outputs)."""
-    static = tuple(a.clone() for a in args)
-    side = torch.cuda.Stream(static[0].device)
-    side.wait_stream(torch.cuda.current_stream(static[0].device))
-    with torch.cuda.stream(side):
-        fn(*static)
-    torch.cuda.current_stream(static[0].device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        outs = fn(*static)
-    return graph, static, outs
 
 
 def guess_initial_angles(im: Tensor, pos: Tensor) -> Tensor:

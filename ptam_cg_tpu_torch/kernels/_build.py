@@ -21,6 +21,7 @@ and then on ``PATH``.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -129,15 +130,39 @@ def stream_handle(t: torch.Tensor) -> int:
 
 
 _COUNT_LOCK = threading.Lock()
+_LOCAL = threading.local()
 
 
 def count_launch(module, stream: int) -> None:
     """Add one launch on ``stream`` (a raw handle, 0 for the legacy default
-    stream) to a wrapper module's ``launches`` and ``launches_by_stream``.
-    Under a lock: the engine's tracking thread and its mapping worker
-    launch the same kernels at once, and ``+=`` on a module global is a
+    stream) to a wrapper module's ``launches`` and ``launches_by_stream``;
+    inside ``tally()`` on this thread, add it to the tally instead."""
+    tally_ = getattr(_LOCAL, "tally", None)
+    if tally_ is not None:
+        tally_[module] = tally_.get(module, 0) + 1
+        return
+    count_launches(module, stream, 1)
+
+
+def count_launches(module, stream: int, n: int) -> None:
+    """Add ``n`` launches on ``stream`` to a wrapper module's counts. Under
+    a lock: the engine's tracking thread and its mapping worker launch the
+    same kernels at once, and ``+=`` on a module global is a
     read-modify-write."""
     with _COUNT_LOCK:
-        module.launches += 1
+        module.launches += n
         module.launches_by_stream[stream] = (
-            module.launches_by_stream.get(stream, 0) + 1)
+            module.launches_by_stream.get(stream, 0) + n)
+
+
+@contextlib.contextmanager
+def tally():
+    """Collect this thread's launches as {wrapper module: count} instead of
+    counting them: a CUDA graph's capture records its kernels this way,
+    and each replay adds them (``models/programs.py``)."""
+    outer = getattr(_LOCAL, "tally", None)
+    _LOCAL.tally = launched = {}
+    try:
+        yield launched
+    finally:
+        _LOCAL.tally = outer

@@ -30,7 +30,11 @@ published map while a pass runs. The port writes a map in place
 (``map_state.insert_keyframe``), so each pass starts from
 ``map_state.copy_map`` of the published map, adds the tracker's pending
 inlier/outlier deltas to the copy, runs ``MapMaker.step`` on it and
-publishes it; no pass writes a map that tracking may read. On the card
+publishes it; no pass writes a map that tracking may read. Unlike the
+JAX engine's worker, which runs only when a frame wakes it, the port's
+also runs a pass every 50 ms while a keyframe waits or integrates, as
+the reference's mapping thread works on between frames: a run whose
+frames stop still integrates its last keyframes. On the card
 the worker issues its work on its own CUDA stream. Each hand-off between
 the threads (the deltas, a queued keyframe, the map that init made, a
 published map) makes the consuming stream wait on an event recorded
@@ -41,10 +45,22 @@ of a pass in flight and the pending deltas (a generation counter), and
 an exception in the worker stops it and is raised by the next
 ``process_frame`` or by ``close()``, which joins the worker.
 
+The JAX engine compiles its per-frame work into programs; the port runs
+the same three as CUDA graphs on the card (``models/programs.py``): a
+tracked frame is one replay of ``TrackProgram`` (its frontend build,
+track, the map's new counts and the info vector), a frame build
+(``_build``: the trail frames' and a keyframe's) one of ``BuildProgram``,
+a relocalization one of ``RelocProgram``. On the CPU, and on the card
+with ``graphs=False``, they run eagerly through the same buffers. Outside
+the tracking replay a tracked frame copies its frame and the 14
+``TrackView`` tables in, draws its uniforms into the program's buffers,
+reads the info vector once and copies the map's new inlier and outlier
+counts out (or, with the worker, the deltas).
+
 Not ported, on purpose: ``decision_interval``, the readiness-gated
-decision reads, the ``_inflight`` drain and the ``_wiggle_dev`` cache work
-around a networked TPU, where every blocking read costs ~20 ms; on a
-local card one read a frame is the design.
+decision reads and the ``_inflight`` drain work around a networked TPU,
+where every blocking read costs ~20 ms; on a local card one read a frame
+is the design.
 
 ``mesh`` (a ``parallel.mesh.Mesh``): with more than one rank, global BA
 runs point-sharded over the ranks (``MapMaker``'s docstring), init's BA
@@ -75,7 +91,7 @@ from ptam_cg_tpu_torch.models import initializer as initlib
 from ptam_cg_tpu_torch.models import keyframe as kflib
 from ptam_cg_tpu_torch.models import map_state as ms
 from ptam_cg_tpu_torch.models import mapmaker as mmlib
-from ptam_cg_tpu_torch.models import relocalizer as reloclib
+from ptam_cg_tpu_torch.models import programs
 from ptam_cg_tpu_torch.models import tracker as trklib
 from ptam_cg_tpu_torch.utils import se3 as se3lib
 from ptam_cg_tpu_torch.utils import tree
@@ -107,7 +123,8 @@ class Draws:
     draws MLESAC's uniforms and each new tracker stream's seed, the
     tracker's (``seed + 1``) the per-frame coarse and fine uniforms, and
     the MapMaker's (``seed``) the plane aligner's. A replacement needs the
-    same five methods."""
+    same five methods; its ``track`` may ignore ``out`` and return its own
+    tensors, which the tracking program then copies in."""
 
     def __init__(self, seed: int = 0, device="cuda"):
         self.seed = seed
@@ -121,7 +138,9 @@ class Draws:
         g.manual_seed(seed)
         return g
 
-    def _rand(self, g: torch.Generator, shape) -> Tensor:
+    def _rand(self, g: torch.Generator, shape, out=None) -> Tensor:
+        if out is not None:
+            return torch.rand(shape, generator=g, out=out)
         return torch.rand(shape, generator=g, device=self.device)
 
     def rekey_tracker(self):
@@ -134,9 +153,13 @@ class Draws:
         restarts."""
         self._mapmaker = self._generator(self.seed)
 
-    def track(self, P: int):
-        """A tracked frame's (coarse, fine) uniforms, two (P,)."""
-        return self._rand(self._tracker, P), self._rand(self._tracker, P)
+    def track(self, P: int, out=None):
+        """A tracked frame's (coarse, fine) uniforms, two (P,); drawn into
+        ``out`` (two (P,) float32 tensors: the tracking program's uniform
+        buffers) when given."""
+        out = out or (None, None)
+        return (self._rand(self._tracker, P, out[0]),
+                self._rand(self._tracker, P, out[1]))
 
     def mlesac(self, trials: int, n: int) -> Tensor:
         return self._rand(self._engine, (trials, n))
@@ -160,7 +183,9 @@ class SLAMEngine:
     on a worker thread (the module's docstring); call ``close()`` when
     done, before the interpreter exits. ``mesh``, ``mesh_axis``: the
     point-sharded global BA's ranks (``MapMaker``); a mesh of more than
-    one rank and ``async_mapping`` exclude each other.
+    one rank and ``async_mapping`` exclude each other. ``graphs``: False
+    runs the programs eagerly on the card too (to compare them with
+    their replays); the CPU always runs them eagerly.
     """
 
     def __init__(self, cfg: EngineConfig = EngineConfig(), image_size=None,
@@ -168,7 +193,7 @@ class SLAMEngine:
                  auto_init_frames: int | None = 6,
                  deterministic: bool | None = None, device="cuda",
                  draws=None, async_mapping: bool = False, mesh=None,
-                 mesh_axis: str = "mp"):
+                 mesh_axis: str = "mp", graphs: bool = True):
         trklib.validate_config(cfg.tracker)
         if (async_mapping and mesh is not None
                 and mesh.shape[mesh_axis] > 1):
@@ -184,13 +209,15 @@ class SLAMEngine:
         self._capacity = (max_points, max_kfs)
         self.mesh = mesh
         self.mesh_axis = mesh_axis
+        self.graphs = graphs
+        #: The programs (``models/programs.py``) by kind: "track",
+        #: "build", "reloc".
+        self._programs = {}
         self.image_size = tuple(image_size or cfg.camera.image_size)
         self.cam = atan.make_camera(cfg.camera.params, self.image_size,
                                     self.device)
         self.cam_params = torch.tensor(cfg.camera.params, dtype=torch.float32,
                                        device=self.device)
-        W, H = self.image_size
-        self._sbi_size = ((H >> 3) // 2, (W >> 3) // 2)
         self.draws = Draws(seed, self.device) if draws is None else draws
         self.auto_init_frames = auto_init_frames
         self.frame_idx = 0
@@ -267,13 +294,16 @@ class SLAMEngine:
     def _mapping_worker(self):
         """The mapping thread (MapMaker::run, src/MapMaker.cc:57-114): a
         pass each time tracking wakes it, on the mapping stream on the
-        card. An exception ends the thread and is kept for the tracking
-        thread to raise."""
+        card, and one every 50 ms without a wake while a keyframe waits or
+        integrates (the reference's thread works on between frames; the
+        JAX engine's waits for the next frame). An exception ends the
+        thread and is kept for the tracking thread to raise."""
         with contextlib.ExitStack() as stack:
             if self._map_stream is not None:
                 stack.enter_context(torch.cuda.stream(self._map_stream))
             while not self._stop_mapping.is_set():
-                if not self._mapping_wake.wait(timeout=0.05):
+                if not (self._mapping_wake.wait(timeout=0.05)
+                        or self._keyframe_work()):
                     continue
                 self._mapping_wake.clear()
                 try:
@@ -281,6 +311,10 @@ class SLAMEngine:
                 except Exception as e:   # raised again by the engine
                     self._worker_error = e
                     return
+
+    def _keyframe_work(self) -> bool:
+        with self._map_lock:
+            return self._mapping_on and self.mapmaker.integrating()
 
     def _mapping_pass(self):
         """One pass: copy the published map, add the pending deltas, run
@@ -366,20 +400,31 @@ class SLAMEngine:
         except Exception:   # nothing can be raised from a finalizer
             pass
 
-    def _build(self, im: Tensor) -> kflib.FrameFeatures:
-        return kflib.build_frame(
-            im, self.cfg.frontend,
-            float(self.cfg.mapmaker.candidate_min_shi_tomasi_score))
+    def _program(self, kind: str, frame_dtype=None) -> programs.Program:
+        """The engine's ``kind`` program, a new one when what it bakes in
+        (``key_of``) changed. With the mapping worker, a program captures
+        under ``_map_lock``: no pass starts or publishes meanwhile."""
+        cls = {"track": programs.TrackProgram,
+               "build": programs.BuildProgram,
+               "reloc": programs.RelocProgram}[kind]
+        prog = self._programs.get(kind)
+        if prog is None or prog.key != cls.key_of(self.cfg, frame_dtype,
+                                                  self._capacity):
+            prog = cls(self.cfg, self.image_size, self.cam, self.cam_params,
+                       self._capacity, frame_dtype, device=self.device,
+                       graphs=self.graphs)
+            self._programs[kind] = prog
+        return prog
 
-    def _to_device(self, im) -> Tensor:
-        """The frame as float32 on the engine's device; a host frame is
-        copied without a host sync (through pinned memory to the card),
-        in its own dtype, and cast there."""
-        if not isinstance(im, Tensor):
-            im = torch.from_numpy(np.ascontiguousarray(im))
-        if im.device.type == "cpu" and self.device.type == "cuda":
-            im = im.pin_memory().to(self.device, non_blocking=True)
-        return im.to(self.device, torch.float32)
+    def _run(self, prog: programs.Program, *args):
+        lock = (self._map_lock if self.async_mapping and prog.will_capture()
+                else contextlib.nullcontext())
+        with lock:
+            return prog(*args)
+
+    def _build(self, im: Tensor) -> kflib.FrameFeatures:
+        """The keyframe build of a frame (a copy of the features)."""
+        return self._run(self._program("build", im.dtype), im)
 
     def _read_info(self, info: Tensor):
         """The one host read of a tracked frame's decision scalars."""
@@ -392,12 +437,15 @@ class SLAMEngine:
 
     def process_frame(self, im) -> FrameInfo:
         """One frame (System::UpdateFrame -> Tracker::TrackFrame): an (H, W)
-        uint8 or float32 image, on the host or on the device."""
+        uint8 or float32 image, on the host or on the device. The programs
+        copy it to the device in its own dtype (from the host without a
+        sync) and cast it there."""
         if self.async_mapping:
             self._raise_worker_error()
             if self._closed:
                 raise RuntimeError("process_frame: the engine is closed")
-        im = self._to_device(im)
+        if not isinstance(im, Tensor):
+            im = torch.from_numpy(np.ascontiguousarray(im))
         cfg = self.cfg
         features = None
         if self.stage != Stage.TRACKING:
@@ -503,12 +551,10 @@ class SLAMEngine:
             # Relocalize if lost (src/Tracker.cc:168-207), from the SBI of
             # the frame whose quality said lost.
             if lost > cfg.tracker.max_lost_frames:
-                rr = reloclib.attempt_recovery(
-                    m, p["out"].sbi, self.cam_params, self._sbi_size,
-                    cfg.reloc.max_score, cfg.reloc.esm_iterations)
+                rr = self._run(self._program("reloc"), m, p["out"].sbi)
                 if bool(rr.success):
                     st = dataclasses.replace(
-                        st, pose=SE3(rr.pose.R, rr.pose.t),
+                        st, pose=rr.pose,
                         velocity=torch.zeros_like(st.velocity),
                         just_recovered=torch.ones_like(st.just_recovered),
                         lost_frames=torch.zeros_like(st.lost_frames))
@@ -520,33 +566,31 @@ class SLAMEngine:
                     > cfg.tracker.min_frames_between_kfs
                     and mm.queue_size() < cfg.mapmaker.max_queue_size
                     and mm.n_kfs() + mm.queue_size() < m.kf_R.shape[0]):
+                # The program's next replay overwrites these: copies go
+                # to the queue. p["im"] still holds that frame.
                 res, pst = p["out"].result, p["out"].state
-                meas = dict(point=res.meas_point, pos=res.meas_pos,
-                            level=res.meas_level, subpix=res.meas_subpix,
-                            valid=res.meas_valid)
-                kf = (self._build(p["im"]), pst.pose, meas, pst.depth_mean,
-                      pst.depth_sigma)
+                meas = dict(point=res.meas_point.clone(),
+                            pos=res.meas_pos.clone(),
+                            level=res.meas_level.clone(),
+                            subpix=res.meas_subpix.clone(),
+                            valid=res.meas_valid.clone())
+                kf = (self._build(p["im"]), _copy_pose(pst.pose), meas,
+                      pst.depth_mean.clone(), pst.depth_sigma.clone())
                 self._hand_over(kf)
                 mm.add_keyframe(*kf)
                 self.frames_since_kf = 0
                 added_kf = True
 
-        # This frame: build and track, then the decision scalars.
+        # This frame: the tracking program (build, track, the map's new
+        # counts, the decision scalars), its uniforms drawn into its
+        # buffers.
+        prog = self._program("track", im.dtype)
         P = m.point_pos.shape[0]
-        rand_coarse, rand_fine = self.draws.track(P)
-        fo = trklib.track_frame_from_image(
-            st, m, im, self._prev_sbi_track, self.cam,
-            self.image_size, self.cam_params, cfg.tracker, cfg.frontend,
-            cfg.mapmaker.wiggle_scale, rand_coarse=rand_coarse,
-            rand_fine=rand_fine)
+        rand_coarse, rand_fine = self.draws.track(P, out=prog.rand)
+        fo, new_inl, new_outl, info = self._run(
+            prog, st, m, im, self._prev_sbi_track, rand_coarse, rand_fine,
+            mm.wiggle_depth_norm)
         res = fo.result
-        need_kf = mmlib.need_new_kf(
-            m, fo.state.pose, fo.state.depth_mean,
-            mm.wiggle_depth_norm, cfg.mapmaker.max_kf_dist_wiggle_mult)
-        info = torch.stack([x.to(torch.int64) for x in (
-            fo.state.quality, fo.state.lost_frames,
-            torch.sum(res.meas_valid.to(torch.int32)), need_kf,
-            torch.sum(m.point_valid.to(torch.int32)))])
         self.tracker_state = fo.state
         self._prev_sbi_track = fo.sbi_track
         # Let bad-point GC look at the new counts now and then.
@@ -555,20 +599,19 @@ class SLAMEngine:
         if p is None:
             # The first tracked frame after init reports its own info.
             self._read_info(info)
-        self._pending = dict(im=im, out=fo, info=info)
+        self._pending = dict(im=prog.frame, out=fo, info=info)
 
         if self.async_mapping:
             # The deltas go to the worker's next pass, which it starts now.
-            deltas = (res.inlier_delta, res.outlier_delta)
+            deltas = (res.inlier_delta.clone(), res.outlier_delta.clone())
             self._hand_over(deltas)
             with self._map_lock:
                 self._pending_deltas.append(deltas)
             self._mapping_wake.set()
             return relocalized, added_kf
         # One mapping pass.
-        mm.map = dataclasses.replace(
-            m, point_inlier=m.point_inlier + res.inlier_delta,
-            point_outlier=m.point_outlier + res.outlier_delta)
+        mm.map = dataclasses.replace(m, point_inlier=new_inl.clone(),
+                                     point_outlier=new_outl.clone())
         slot = mm.step(self.newest_kf)
         self.map = mm.map
         if slot is not None:

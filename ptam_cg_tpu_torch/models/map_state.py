@@ -259,7 +259,8 @@ def refresh_pixel_vectors(m: MapState) -> MapState:
 
 def closest_kf_distances(m: MapState, pose: SE3) -> Tensor:
     """Distance from ``pose``'s camera centre to every valid keyframe's
-    (inf for invalid slots)."""
+    (inf for invalid slots). ``m``: a MapState or a ``tracker.TrackView``
+    (the fields read are among its 14)."""
     c = -(pose.R.transpose(-1, -2) @ pose.t[..., None])[..., 0]
     centers = -(m.kf_R.transpose(-1, -2) @ m.kf_t[..., None])[..., 0]
     d = torch.linalg.vector_norm(centers - c, dim=-1)

@@ -101,7 +101,8 @@ def closest_kf(m: MapState, k) -> Tensor:
 def need_new_kf(m: MapState, pose: SE3, depth_mean, wiggle_depth_norm,
                 max_dist_mult: float) -> Tensor:
     """IsNeedNewKeyFrame: the nearest keyframe, in units of scene depth,
-    is farther than ``max_dist_mult * wiggle_depth_norm``."""
+    is farther than ``max_dist_mult * wiggle_depth_norm`` (a float or a
+    0-dim tensor). ``m``: a MapState or a ``tracker.TrackView``."""
     d = ms.closest_kf_distances(m, pose)
     dist = torch.min(d) / torch.clamp(torch.as_tensor(depth_mean), min=1e-6)
     return dist > max_dist_mult * wiggle_depth_norm
@@ -924,6 +925,11 @@ class MapMaker:
 
     def queue_size(self) -> int:
         return len(self.kf_queue)
+
+    def integrating(self) -> bool:
+        """A keyframe is queued or its integration is under way."""
+        return bool(self.kf_queue) or self._integrate_job is not None \
+            or self._pending_integrate is not None
 
     def n_kfs(self) -> int:
         return self._n_kfs_host

@@ -1,0 +1,395 @@
+"""The engine's compiled programs as CUDA graphs (port of the JAX
+engine's jitted programs, ``ptam_cg_tpu/models/engine.py``):
+
+- ``TrackProgram``: ``_track_and_decide`` (engine.py:163-186): the
+  frontend build, ``track_frame_from_image``, the map's new inlier and
+  outlier counts, ``need_new_kf`` and the info vector ``[quality,
+  lost_frames, n_found, need_kf, n_points]``, in one dispatch;
+- ``BuildProgram``: ``keyframe.build_frame`` of a frame in its own dtype
+  (engine.py:139-141);
+- ``RelocProgram``: ``relocalizer.attempt_recovery`` (engine.py:222-224).
+
+A ``jax.jit`` program is one dispatch; its counterpart on the card is a
+CUDA graph. Each program owns static input buffers: a call copies its
+inputs into them (``copy_``; an input that already is its buffer is not
+copied) and runs the function on the buffers. On the card the function
+is captured once (``Graph``: a warm-up on a side stream, then the
+capture, in thread-local mode because the engine's mapping worker
+launches on another thread meanwhile) and every call replays it; on the
+CPU, or with ``graphs=False`` on the card, the same function runs
+eagerly on the same buffers and its outputs are copied into the first
+call's, so they are overwritten as a replay's are. A failed capture
+raises: nothing falls back to eager by itself.
+
+A replay overwrites the graph's outputs, so a caller clones what it
+keeps past the next call of the same program. ``TrackProgram`` writes
+the new tracker state and rotation-estimator SBI into its own input
+buffers at the end of the program, as the next frame's inputs, and
+returns those buffers; ``BuildProgram`` and ``RelocProgram`` return
+clones.
+
+The kernels' launch counts (``kernels/_build.py``) count Python calls of
+their wrappers, and a replay makes none: a capture records the kernels
+it launched by wrapper module (``_build.tally``), and each replay adds
+them on the stream it replays on and adds one to ``replays`` under the
+name of the function it replays. ``capturing()`` tells a caller's
+counters that a call made now runs nothing: it is being captured.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ptam_cg_tpu_torch.kernels import _build
+from ptam_cg_tpu_torch.models import keyframe as kflib
+from ptam_cg_tpu_torch.models import map_state as ms
+from ptam_cg_tpu_torch.models import mapmaker as mmlib
+from ptam_cg_tpu_torch.models import relocalizer as reloclib
+from ptam_cg_tpu_torch.models import tracker as trklib
+from ptam_cg_tpu_torch.ops import sbi as sbiops
+from ptam_cg_tpu_torch.utils import tree
+
+Tensor = torch.Tensor
+
+_LOCAL = threading.local()
+_REPLAY_LOCK = threading.Lock()
+#: Replays in this process, by the name of the function each replays.
+replays: dict = {}
+
+
+def capturing() -> bool:
+    """True while this thread captures a program."""
+    return getattr(_LOCAL, "capturing", False)
+
+
+@contextlib.contextmanager
+def _capturing():
+    _LOCAL.capturing = True
+    try:
+        yield
+    finally:
+        _LOCAL.capturing = False
+
+
+def _clone(obj):
+    return tree.map_tensors(obj, Tensor.clone)
+
+
+def fill(buf: Tensor, x) -> None:
+    """Copy ``x`` (a tensor or a numpy array) into ``buf``, unless it is
+    ``buf``. A host array goes to the card through pinned memory without
+    a host sync."""
+    if x is buf:
+        return
+    if not isinstance(x, Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    if x.device.type == "cpu" and buf.device.type == "cuda":
+        buf.copy_(x.pin_memory(), non_blocking=True)
+    else:
+        buf.copy_(x)
+
+
+class Graph:
+    """``fn(*inputs)`` captured as a CUDA graph of the static tensors
+    ``inputs``. A warm-up runs first on a side stream, on clones of the
+    inputs (the function may write its inputs); its kernels launch and
+    count as the caller's. Then the capture, with ``capture_error_mode=
+    "thread_local"`` (another thread may launch on its own stream
+    meanwhile), records the kernels the wrappers launch; ``replay`` runs
+    the graph on the current stream and returns the static outputs.
+
+    ``inputs``: the static inputs, to fill before a replay.
+    ``capture_s``: seconds of the capture and the instantiation on the
+    host clock, warm-up apart. ``launches``: {kernel wrapper module:
+    launches a replay}. ``debug_path``: a file to write the captured
+    graph to, as Graphviz DOT (``CUDAGraph.debug_dump``), for counting
+    its nodes."""
+
+    def __init__(self, fn, inputs, debug_path: str | None = None):
+        dev = next(tree.tensors(inputs)).device
+        self.device, self.inputs = dev, inputs
+        caller = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(caller)
+        with _build.tally() as warm, torch.cuda.stream(side):
+            fn(*_clone(inputs))
+        caller.wait_stream(side)
+        for mod, n in warm.items():
+            _build.count_launches(mod, caller.cuda_stream, n)
+        # A graph to dump is kept after its instantiation.
+        keep = debug_path is not None
+        self.graph = torch.cuda.CUDAGraph(keep_graph=keep)
+        t0 = time.perf_counter()
+        with _build.tally() as self.launches, _capturing(), \
+                torch.cuda.graph(self.graph,
+                                 capture_error_mode="thread_local"):
+            self.outputs = fn(*inputs)
+        if keep:
+            self.graph.instantiate()
+        self.capture_s = time.perf_counter() - t0
+        if keep:
+            self.graph.debug_dump(debug_path)
+
+    def replay(self, name: str | None = None):
+        """Run the graph; count its kernels on the current stream and,
+        with ``name``, one replay of that function."""
+        self.graph.replay()
+        stream = torch._C._cuda_getCurrentRawStream(self.device.index)
+        for mod, n in self.launches.items():
+            _build.count_launches(mod, stream, n)
+        if name is not None:
+            with _REPLAY_LOCK:
+                replays[name] = replays.get(name, 0) + 1
+        return self.outputs
+
+
+class Program:
+    """A function of static input buffers, replayed as a ``Graph`` on the
+    card (``graphs``) and run eagerly otherwise. ``name``: the function a
+    replay counts as a call of. The three programs take the same
+    arguments: the engine's config, image size, camera (and its
+    parameters), map capacity (points, keyframes) and frame dtype, each
+    using what it needs. ``key``: what of them the program bakes in; the
+    engine builds a new program when the key changes (the console
+    replaces the config)."""
+
+    name = ""
+
+    def __init__(self, cfg, image_size, capacity, frame_dtype, device,
+                 graphs: bool, debug_path: str | None):
+        self.key = self.key_of(cfg, frame_dtype, capacity)
+        self.cfg = cfg
+        self.image_size = tuple(image_size)
+        self.device = torch.device(device)
+        self.graphs = graphs and self.device.type == "cuda"
+        self.debug_path = debug_path
+        self.graph = None
+        self._outputs = None
+
+    @staticmethod
+    def key_of(cfg, frame_dtype, capacity):
+        raise NotImplementedError
+
+    def will_capture(self) -> bool:
+        """True if the next call captures."""
+        return self.graphs and self.graph is None
+
+    def _inputs(self):
+        raise NotImplementedError
+
+    def _fn(self, *inputs):
+        raise NotImplementedError
+
+    def run(self):
+        """The function on the filled buffers: a replay on the card, an
+        eager call otherwise, whose results are copied into the first
+        call's, so that each call overwrites the last one's outputs as a
+        replay does."""
+        if not self.graphs:
+            out = self._fn(*self._inputs())
+            if self._outputs is None:
+                self._outputs = out
+            for buf, x in zip(tree.tensors(self._outputs), tree.tensors(out)):
+                if buf is not x:
+                    buf.copy_(x)
+            return self._outputs
+        if self.graph is None:
+            self.graph = Graph(self._fn, self._inputs(), self.debug_path)
+        return self.graph.replay(self.name)
+
+
+class TrackOutput(NamedTuple):
+    out: trklib.FusedFrameOutput   # state and sbi_track: the input buffers
+    point_inlier: Tensor           # (P,) the view's counts plus the deltas
+    point_outlier: Tensor
+    info: Tensor                   # (5,) int64
+
+
+def _state_tensors(st: trklib.TrackerState):
+    return (st.pose.R, st.pose.t, st.velocity, st.msd_vel, st.lost_frames,
+            st.quality, st.just_recovered, st.depth_mean, st.depth_sigma)
+
+
+class TrackProgram(Program):
+    """The tracking program (``_track_and_decide``, engine.py:163-184) at
+    one frame dtype and map capacity. Inputs: the frame in its own dtype
+    (cast to float32 in the program, as JAX does), the tracker state, the
+    previous frame's rotation-estimator SBI, the ``TrackView``'s 14
+    tables, the coarse and fine uniforms (``rand``: draw into them) and
+    ``wiggle_depth_norm`` (a 0-dim tensor, refilled when the float
+    changes). K1 launches once and K2 four times a call."""
+
+    name = "track_frame_from_image"
+
+    def __init__(self, cfg, image_size, cam, cam_params: Tensor, capacity,
+                 frame_dtype=torch.float32, device="cuda",
+                 graphs: bool = True, debug_path: str | None = None):
+        super().__init__(cfg, image_size, capacity, frame_dtype, device,
+                         graphs, debug_path)
+        W, H = image_size
+        dev = self.device
+        self.cam, self.cam_params = cam, cam_params
+        self.frame = torch.zeros((H, W), dtype=frame_dtype, device=dev)
+        self.state = trklib.init_tracker_state(device=dev)
+        h, w = (H >> 3) // 2, (W >> 3) // 2
+        self.prev_sbi = sbiops.SBI(
+            template=torch.zeros((h, w), dtype=torch.float32, device=dev),
+            jac=torch.zeros((h, w, 2), dtype=torch.float32, device=dev))
+        self.view = trklib.make_track_view(
+            ms.empty_map(image_size, *capacity, device=dev))
+        self.rand = tuple(torch.zeros(capacity[0], dtype=torch.float32,
+                                      device=dev) for _ in range(2))
+        self.wiggle = torch.ones((), dtype=torch.float32, device=dev)
+        self._wiggle_value = 1.0
+
+    @staticmethod
+    def key_of(cfg, frame_dtype, capacity):
+        return (cfg.tracker, cfg.frontend, cfg.mapmaker.wiggle_scale,
+                cfg.mapmaker.max_kf_dist_wiggle_mult, frame_dtype,
+                tuple(capacity))
+
+    def _inputs(self):
+        return (self.state, self.view, self.frame, self.prev_sbi, self.rand,
+                self.wiggle)
+
+    def _fn(self, state, view, frame, prev_sbi, rand, wiggle):
+        cfg = self.cfg
+        fo = trklib.track_frame_from_image(
+            state, view, frame.to(torch.float32), prev_sbi, self.cam,
+            self.image_size, self.cam_params, cfg.tracker, cfg.frontend,
+            cfg.mapmaker.wiggle_scale, rand_coarse=rand[0],
+            rand_fine=rand[1])
+        res = fo.result
+        need_kf = mmlib.need_new_kf(view, fo.state.pose, fo.state.depth_mean,
+                                    wiggle,
+                                    cfg.mapmaker.max_kf_dist_wiggle_mult)
+        info = torch.stack([x.to(torch.int64) for x in (
+            fo.state.quality, fo.state.lost_frames,
+            torch.sum(res.meas_valid.to(torch.int32)), need_kf,
+            torch.sum(view.point_valid.to(torch.int32)))])
+        inl = view.point_inlier + res.inlier_delta
+        outl = view.point_outlier + res.outlier_delta
+        # The next frame's state and SBI, into this program's inputs.
+        for buf, x in zip(_state_tensors(state), _state_tensors(fo.state)):
+            buf.copy_(x)
+        prev_sbi.template.copy_(fo.sbi_track.template)
+        prev_sbi.jac.copy_(fo.sbi_track.jac)
+        out = trklib.FusedFrameOutput(state=state, result=res,
+                                      sbi_score=fo.sbi_score, sbi=fo.sbi,
+                                      sbi_track=prev_sbi)
+        return TrackOutput(out, inl, outl, info)
+
+    def __call__(self, state: trklib.TrackerState, view, im, prev_sbi,
+                 rand_coarse: Tensor, rand_fine: Tensor,
+                 wiggle_depth_norm) -> TrackOutput:
+        """One frame. ``view``: a ``TrackView`` or a MapState. The
+        returned state carries ``state``'s generator."""
+        for buf, x in zip(_state_tensors(self.state),
+                          _state_tensors(state)):
+            fill(buf, x)
+        for buf, x in zip(self.view, trklib.make_track_view(view)):
+            fill(buf, x)
+        fill(self.frame, im)
+        fill(self.prev_sbi.template, prev_sbi.template)
+        fill(self.prev_sbi.jac, prev_sbi.jac)
+        fill(self.rand[0], rand_coarse)
+        fill(self.rand[1], rand_fine)
+        if isinstance(wiggle_depth_norm, Tensor):
+            fill(self.wiggle, wiggle_depth_norm)
+            self._wiggle_value = None
+        elif wiggle_depth_norm != self._wiggle_value:
+            self.wiggle.fill_(float(wiggle_depth_norm))
+            self._wiggle_value = wiggle_depth_norm
+        self.state.generator = state.generator
+        return self.run()
+
+
+class BuildProgram(Program):
+    """The keyframe build (``build_frame``, engine.py:139-141) of a frame
+    in its own dtype, cast to float32 in the program. K1 and K3 launch
+    once a call. Returns a clone of the features."""
+
+    name = "build_frame"
+
+    def __init__(self, cfg, image_size, cam=None, cam_params=None,
+                 capacity=None, frame_dtype=torch.float32, device="cuda",
+                 graphs: bool = True, debug_path: str | None = None):
+        super().__init__(cfg, image_size, capacity, frame_dtype, device,
+                         graphs, debug_path)
+        W, H = image_size
+        self.frame = torch.zeros((H, W), dtype=frame_dtype,
+                                 device=self.device)
+
+    @staticmethod
+    def key_of(cfg, frame_dtype, capacity):
+        return (cfg.frontend,
+                float(cfg.mapmaker.candidate_min_shi_tomasi_score),
+                frame_dtype)
+
+    def _inputs(self):
+        return (self.frame,)
+
+    def _fn(self, frame):
+        return kflib.build_frame(
+            frame.to(torch.float32), self.cfg.frontend,
+            float(self.cfg.mapmaker.candidate_min_shi_tomasi_score))
+
+    def __call__(self, im) -> kflib.FrameFeatures:
+        fill(self.frame, im)
+        return _clone(self.run())
+
+
+class RelocView(NamedTuple):
+    """The five MapState tables ``attempt_recovery`` reads."""
+    kf_sbi: Tensor             # (K, h_sbi, w_sbi)
+    kf_sbi_jac: Tensor         # (K, h_sbi, w_sbi, 2)
+    kf_R: Tensor               # (K, 3, 3)
+    kf_t: Tensor               # (K, 3)
+    kf_valid: Tensor           # (K,)
+
+
+class RelocProgram(Program):
+    """Relocalization (``attempt_recovery``, engine.py:222-224) against
+    the map's keyframes at one keyframe capacity. No hand-written kernel
+    runs in it. Returns a clone of the result."""
+
+    name = "attempt_recovery"
+
+    def __init__(self, cfg, image_size, cam=None, cam_params=None,
+                 capacity=(1, 1), frame_dtype=None, device="cuda",
+                 graphs: bool = True, debug_path: str | None = None):
+        super().__init__(cfg, image_size, capacity, frame_dtype, device,
+                         graphs, debug_path)
+        W, H = image_size
+        self.sbi_size = ((H >> 3) // 2, (W >> 3) // 2)
+        self.cam_params = cam_params
+        m = ms.empty_map(image_size, 1, capacity[1], device=self.device)
+        self.view = RelocView(*(getattr(m, f) for f in RelocView._fields))
+        self.sbi = sbiops.SBI(template=torch.zeros_like(m.kf_sbi[0]),
+                              jac=torch.zeros_like(m.kf_sbi_jac[0]))
+
+    @staticmethod
+    def key_of(cfg, frame_dtype, capacity):
+        return (cfg.reloc, capacity[1])
+
+    def _inputs(self):
+        return (self.view, self.sbi)
+
+    def _fn(self, view, sbi):
+        return reloclib.attempt_recovery(
+            view, sbi, self.cam_params, self.sbi_size,
+            self.cfg.reloc.max_score, self.cfg.reloc.esm_iterations)
+
+    def __call__(self, m, cur_sbi: sbiops.SBI) -> reloclib.RelocResult:
+        """``m``: a MapState (or anything with ``RelocView``'s fields)."""
+        for f, buf in zip(RelocView._fields, self.view):
+            fill(buf, getattr(m, f))
+        fill(self.sbi.template, cur_sbi.template)
+        fill(self.sbi.jac, cur_sbi.jac)
+        return _clone(self.run())

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -89,6 +90,35 @@ def init_tracker_state(pose: SE3 | None = None, seed: int = 0,
         quality=scalar(QUALITY_GOOD, torch.int32),
         just_recovered=scalar(False, torch.bool),
         depth_mean=scalar(1.0), depth_sigma=scalar(1.0), generator=gen)
+
+
+class TrackView(NamedTuple):
+    """The 14 MapState fields that tracking and the per-frame decision
+    scalars read (the JAX package's ``TrackView``, same fields, same
+    order): the tracking program's map input (``models/programs.py``
+    copies them into its static buffers every frame). ``track_map``,
+    ``local_point_mask``, ``map_state.closest_kf_distances`` and
+    ``mapmaker.need_new_kf`` read fields by name, so they take a view
+    wherever they take a MapState."""
+    point_pos: Tensor          # (P, 3)
+    point_valid: Tensor        # (P,)
+    point_center: Tensor       # (P, 2)
+    point_src_kf: Tensor       # (P,)
+    point_src_level: Tensor    # (P,)
+    point_right_w: Tensor      # (P, 3)
+    point_down_w: Tensor       # (P, 3)
+    point_inlier: Tensor       # (P,)
+    point_outlier: Tensor      # (P,)
+    kf_R: Tensor               # (K, 3, 3)
+    kf_t: Tensor               # (K, 3)
+    kf_valid: Tensor           # (K,)
+    kf_atlas: Tensor           # (K, Ha, W)
+    meas_valid: Tensor         # (K, P)
+
+
+def make_track_view(m: MapState) -> TrackView:
+    """The tracking-visible fields of ``m`` (the same tensors, no copy)."""
+    return TrackView(*(getattr(m, f) for f in TrackView._fields))
 
 
 @dataclasses.dataclass
@@ -170,9 +200,10 @@ def _pose_jacobian(p_cam: Tensor, cam_derivs: Tensor) -> Tensor:
     return cam_derivs @ plane.transpose(-1, -2)
 
 
-def _search_subset(m: MapState, frame: TrackFeatures, pose: SE3,
-                   cam: atan.Camera, image_size, idx: Tensor, active: Tensor,
-                   range_l0, subpix_its: int, subpix_level3_only: bool,
+def _search_subset(m: MapState | TrackView, frame: TrackFeatures,
+                   pose: SE3, cam: atan.Camera, image_size, idx: Tensor,
+                   active: Tensor, range_l0, subpix_its: int,
+                   subpix_level3_only: bool,
                    r_win: int) -> dict:
     """Template warp + windowed ZMSSD + subpix for a subset of points."""
     W, H = image_size
@@ -264,7 +295,8 @@ def _gn_pose_iterations(pose: SE3, cam: atan.Camera, image_size,
     return SE3(R, t), w
 
 
-def local_point_mask(m: MapState, pose: SE3, n_nearest: int = 4) -> Tensor:
+def local_point_mask(m: MapState | TrackView, pose: SE3,
+                     n_nearest: int = 4) -> Tensor:
     """Points measured by the ``n_nearest`` valid keyframes nearest
     ``pose`` (the PVS restriction of TrackMapLocal). Ties in distance take
     the lower index, as ``lax.top_k``."""
@@ -278,9 +310,9 @@ def local_point_mask(m: MapState, pose: SE3, n_nearest: int = 4) -> Tensor:
     return torch.any(m.meas_valid & near[:, None], dim=0) & m.point_valid
 
 
-def track_map(m: MapState, frame: TrackFeatures, pose: SE3, cam: atan.Camera,
-              image_size, msd_vel: Tensor, just_recovered: Tensor,
-              cfg: TrackerConfig = TrackerConfig(), *,
+def track_map(m: MapState | TrackView, frame: TrackFeatures, pose: SE3,
+              cam: atan.Camera, image_size, msd_vel: Tensor,
+              just_recovered: Tensor, cfg: TrackerConfig = TrackerConfig(), *,
               rand_coarse: Tensor | None = None,
               rand_fine: Tensor | None = None,
               generator: torch.Generator | None = None,
@@ -430,9 +462,10 @@ class FrameOutput:
     sbi_score: Tensor
 
 
-def track_frame(state: TrackerState, m: MapState, frame: TrackFeatures,
-                prev_sbi: sbiops.SBI, cam: atan.Camera, image_size,
-                cam_params: Tensor, cfg: TrackerConfig = TrackerConfig(),
+def track_frame(state: TrackerState, m: MapState | TrackView,
+                frame: TrackFeatures, prev_sbi: sbiops.SBI,
+                cam: atan.Camera, image_size, cam_params: Tensor,
+                cfg: TrackerConfig = TrackerConfig(),
                 wiggle_scale: float = 0.1, *,
                 rand_coarse: Tensor | None = None,
                 rand_fine: Tensor | None = None) -> FrameOutput:
@@ -510,7 +543,8 @@ class FusedFrameOutput:
     sbi_track: sbiops.SBI    # rotation-estimator SBI (next frame's prev)
 
 
-def track_frame_from_image(state: TrackerState, m: MapState, im: Tensor,
+def track_frame_from_image(state: TrackerState,
+                           m: MapState | TrackView, im: Tensor,
                            prev_sbi: sbiops.SBI, cam: atan.Camera, image_size,
                            cam_params: Tensor,
                            cfg: TrackerConfig = TrackerConfig(),

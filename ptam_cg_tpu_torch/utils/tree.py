@@ -1,4 +1,4 @@
-"""Move nested dataclasses of tensors between devices, and walk them."""
+"""Map, move and walk nested dataclasses of tensors."""
 
 from __future__ import annotations
 
@@ -7,21 +7,29 @@ import dataclasses
 import torch
 
 
-def to_device(obj, device):
-    """Copy of ``obj`` with every tensor inside (through dataclasses,
-    tuples, lists and dicts) moved to ``device``. Other leaves, such as a
-    ``torch.Generator``, are kept as they are."""
+def map_tensors(obj, fn):
+    """Copy of ``obj`` with ``fn`` applied to every tensor inside (through
+    dataclasses, named and plain tuples, lists and dicts). Other leaves,
+    such as a ``torch.Generator``, are kept as they are."""
     if isinstance(obj, torch.Tensor):
-        return obj.to(device)
+        return fn(obj)
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return dataclasses.replace(obj, **{
-            f.name: to_device(getattr(obj, f.name), device)
+            f.name: map_tensors(getattr(obj, f.name), fn)
             for f in dataclasses.fields(obj)})
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(map_tensors(v, fn) for v in obj))
     if isinstance(obj, (tuple, list)):
-        return type(obj)(to_device(v, device) for v in obj)
+        return type(obj)(map_tensors(v, fn) for v in obj)
     if isinstance(obj, dict):
-        return {k: to_device(v, device) for k, v in obj.items()}
+        return {k: map_tensors(v, fn) for k, v in obj.items()}
     return obj
+
+
+def to_device(obj, device):
+    """Copy of ``obj`` with every tensor inside moved to ``device``
+    (``map_tensors``)."""
+    return map_tensors(obj, lambda t: t.to(device))
 
 
 def tensors(obj):

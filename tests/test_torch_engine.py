@@ -85,7 +85,7 @@ class JaxDraws:
     def reset_mapmaker(self):
         self._mapmaker = jax.random.PRNGKey(self.seed)
 
-    def track(self, n):
+    def track(self, n, out=None):
         self._tracker, k_frame = jax.random.split(self._tracker)
         kc, kf = jax.random.split(k_frame)
         return (self._t(jax.random.uniform(kc, (n,))),

@@ -47,7 +47,7 @@ class RecordingDraws(JaxDraws):
         super().reset_mapmaker()
         self.calls.append(("reset", [np.zeros(0)]))
 
-    def track(self, n):
+    def track(self, n, out=None):
         out = super().track(n)
         self.calls.append(("track", [t.numpy() for t in out]))
         return out

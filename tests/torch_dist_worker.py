@@ -180,7 +180,7 @@ class ReplayDraws:
     def reset_mapmaker(self):
         self._next("reset")
 
-    def track(self, n):
+    def track(self, n, out=None):
         return tuple(self._next("track"))
 
     def mlesac(self, trials, n):
