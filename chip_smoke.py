@@ -112,13 +112,16 @@ Phases, each fatal on failure:
    Timed: ``trail_advance`` a frame, ``homography.compute``, the whole
    ``init_from_stereo`` with its BA-run count, and ``attempt_recovery``.
 11. the engine, ``SLAMEngine.process_frame``, on bench_engine.py's 240
-   frames at 640x480 (uint8 from the host), replaying its programs as
-   CUDA graphs (phase 17): 11a deterministic, 11b card against CPU, 11c
-   the card's latency mode (frame latency, FPS, host reads, busy share;
-   then the same frames with the programs run eagerly, p50, p95 and FPS
-   beside the graphed ones), 11d relocalization (each also run eagerly on
-   its inputs) and the poisoned-map reset, 11e tests/test_slam_e2e.py's
-   orbit at its pace, where integrations add points, card against CPU;
+   frames at 640x480 (uint8 from the host), replaying its programs and
+   its MapMaker's as CUDA graphs (phases 17-18): 11a deterministic, 11b
+   card against CPU, 11c the card's latency mode (frame latency, FPS,
+   host reads, busy share; then the same frames with the MapMaker's
+   programs run eagerly, and with every program run eagerly, p50, p95,
+   max and FPS beside the graphed ones), 11d relocalization (each also
+   run eagerly on its inputs) and the poisoned-map reset, 11e
+   tests/test_slam_e2e.py's orbit at its pace, where integrations add
+   points, card against CPU, and the card with the MapMaker's programs
+   eager (equal in outcome);
 12. the engine with its mapping worker (``async_mapping=True``) on the
    same frames in latency mode: the bars of tests/test_async_mapping.py
    and the e2e's ATE, its latency, FPS, mapping passes, map copies (and
@@ -170,7 +173,32 @@ Phases, each fatal on failure:
    program's capture s, graph nodes against an eager call's kernels, a
    replay's ms by CUDA events and by the host clock and device us, the
    eager call's beside; the 14 TrackView copies' device us; and a
-   tracked frame's launches and copies outside its one graph replay.
+   tracked frame's launches and copies outside its one graph replay;
+18. the MapMaker's programs (``MapPrograms``: the JAX MapMaker's jitted
+   jobs) and BA's LM chunk (``bundle.ChunkProgram``) as CUDA graphs with
+   conditional nodes (WHILE for a loop, IF for a branch), against the
+   same programs run eagerly on the card (``MapMaker(graphs=False)``),
+   bit for bit: phase 6's integration after each of its five phases (every map
+   field, the new-point mask, slot and points added; each graph holds the K2
+   launches its capture recorded,
+   and the phase's launches equal its calls'); a span re-find on 11e's
+   grown map of BA's failure queue and every other keyframe's unmeasured
+   points (some slots with work, some without; the re-finds and K2
+   launches of the bodies that ran equal the eager calls'); local
+   BA's masks and extraction at the local tier, its chunks and
+   write-back, global BA at the global tier, GC and the plane alignment
+   on phase 9's 64-keyframe map; the LM chunk on phase 8's tiers in
+   chunks of one iteration, five and all, a state at lambda's floor and
+   a blown solve (``failed``), in state and flags, with a step's retries
+   inside a graph, and one host read a chunk against one a try eagerly
+   (sync debug mode). Each program's capture s, nodes and conditional
+   nodes (its dump), a replay's ms by CUDA events and the host clock and
+   device us, the eager call's beside; each MapMaker's captures and
+   memory pool.
+   11c, 11e and 12 also run the engine with ``MapMaker(graphs=False)``
+   (and 11c, 12 with every program eager): p50, p95, max, keyframe frames
+   and FPS beside the graphed run's; 11e's MapMaker runs equal in
+   outcome.
 The line before the last is a JSON summary of the kernels (numbers summed
 over a tracked frame's calls, K3's over a keyframe's;
 ``launches_by_stream_async``: phase 12's launches by CUDA stream); the
@@ -197,6 +225,9 @@ POS_TOL = 1e-3
 REPS = 25
 INT_REPS = 10
 KERNELS = ("fast10", "gather_windows", "shi_tomasi")
+#: The CUDA graphs' conditional-node helper (``csrc/graph_cond.cu``): no
+#: kernel of the path, built with the kernels.
+GRAPH_COND = "graph_cond"
 # Phase 2c: K3's tile shapes (output columns x rows a block, pixels a
 # thread along x); () is the default build, the keyframe path's.
 ST_VARIANTS = ((), ("ST_TILE_H=32",), ("ST_PX=1",),
@@ -894,10 +925,11 @@ def bootstrap(torch, dev, card, kernels, reset_counts, counts):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     start.record()
-    pose2 = initializer.init_from_stereo(
-        mk, ffs[0], ffs[-1], trails[-1], u_mlesac.to(dev), u_plane.to(dev),
-        icfg, stats=stats)
-    end.record()
+    with CallCounts([(mapmaker, "add_points_epipolar")]) as init_calls:
+        pose2 = initializer.init_from_stereo(
+            mk, ffs[0], ffs[-1], trails[-1], u_mlesac.to(dev),
+            u_plane.to(dev), icfg, stats=stats)
+        end.record()
     torch.cuda.synchronize()
     init_ms = (time.perf_counter() - t0) * 1e3
     init_ev = start.elapsed_time(end)
@@ -922,8 +954,13 @@ def bootstrap(torch, dev, card, kernels, reset_counts, counts):
           f"(host clock), {init_ev:.1f} ms (CUDA events); launches "
           f"{init_counts}  [{card}]")
     # Init: the 8x8 template cuts and the sub-pixel windows (K2), then per
-    # epipolar level templates, corner patches and sub-pixel windows.
-    want_init = {"fast10": 0, "shi_tomasi": 0, "gather_windows": 2 + 3 * 4}
+    # epipolar level templates, corner patches and sub-pixel windows: 4
+    # levels, each graph's warm-up call (phase 18) besides.
+    n_levels = init_calls.n["add_points_epipolar"]
+    want_init = {"fast10": 0, "shi_tomasi": 0,
+                 "gather_windows": 2 + 3 * n_levels}
+    check(n_levels in (4, 8), f"init ran {n_levels} epipolar levels, not 4 "
+          f"(and a warm-up each if captured)")
     check(init_counts == want_init, f"init launch counts differ from "
           f"{want_init}")
     check(med_z < 0.02, f"init's points are off the aligned plane: median "
@@ -1136,17 +1173,22 @@ class CallCounts:
     with a counting wrapper, restored on exit): ``n`` by function, and
     ``mapping`` the calls made on the engine's mapping thread. A call
     made while a program is being captured runs nothing and is not
-    counted; each replay of a program (``programs.replays``) counts, on
-    exit, as a call of the function it replays."""
+    counted; each replay of a program, and each run of an IF body,
+    counts as the calls of the function its capture recorded
+    (``graphs.replays``, ``graphs.replays_by_thread``; the bodies' runs
+    are settled, a device sync, on entry and on exit)."""
 
     def __init__(self, targets):
         self.targets, self.n = targets, {name: 0 for _, name in targets}
         self.mapping = dict.fromkeys(self.n, 0)
 
     def __enter__(self):
-        from ptam_cg_tpu_torch.models import programs
-        self.programs = programs
-        self.replays = dict(programs.replays)
+        from ptam_cg_tpu_torch.models import graphs
+        self.graphs = graphs
+        graphs.settle_launches()
+        self.replays = dict(graphs.replays)
+        self.replays_mapping = dict(graphs.replays_by_thread.get("mapping",
+                                                                 {}))
         self.saved = []
         for mod, name in self.targets:
             fn = getattr(mod, name)
@@ -1156,7 +1198,7 @@ class CallCounts:
                 # No function runs on both threads at once: init runs the
                 # mapping jobs on the tracking thread while no mapping
                 # pass runs, so no count is lost.
-                if not programs.capturing():
+                if not graphs.capturing():
                     if threading.current_thread().name == "mapping":
                         self.mapping[_name] += 1
                     self.n[_name] += 1
@@ -1167,9 +1209,14 @@ class CallCounts:
     def __exit__(self, *exc):
         for mod, name, fn in self.saved:
             setattr(mod, name, fn)
+        graphs = self.graphs
+        graphs.settle_launches()
+        mapping = graphs.replays_by_thread.get("mapping", {})
         for name in self.n:
-            self.n[name] += (self.programs.replays.get(name, 0)
+            self.n[name] += (graphs.replays.get(name, 0)
                              - self.replays.get(name, 0))
+            self.mapping[name] += (mapping.get(name, 0)
+                                   - self.replays_mapping.get(name, 0))
 
 
 MAPMAKER_JOBS = ("integrations", "points integrated", "local BA",
@@ -1302,6 +1349,29 @@ def latency_stats(infos, times):
                            if infos[k].added_kf])
 
 
+def print_captures(phase, eng):
+    """The CUDA graphs an engine's MapMaker captured during its run."""
+    progs = eng.mapmaker._progs
+    caps = [] if progs is None else progs.captures
+    secs = [s for _, s in caps]
+    print(f"[{phase}] the MapMaker's captures in the run: {len(caps)}, "
+          f"{sum(secs):.2f} s in all, the longest "
+          f"{max(secs, default=0.0):.3f} s: "
+          f"{[(label, round(s, 3)) for label, s in caps]}")
+
+
+def print_variants(phase, what, variants, card):
+    """A phase's tracked-frame latency (p50, p95, max; keyframe frames
+    apart: their count and median) and FPS, one line per variant."""
+    for tag, v in variants.items():
+        kf = [t for _, t in v["kf_frames"]]
+        kf_med = f"{statistics.median(kf):.1f} ms" if kf else "none"
+        print(f"[{phase}] {tag}, {what}: p50 {v['p50']:.1f} ms, p95 "
+              f"{v['p95']:.1f} ms, max {v['max']:.1f} ms over {v['n']} "
+              f"frames; {len(kf)} keyframe frames, median {kf_med}; "
+              f"{v['fps']:.2f} FPS  [{card}]")
+
+
 def engine_targets():
     """The functions that launch each kernel on the engine's path: K1 in
     every build, K3 in a keyframe build; K2 4 a tracked frame, 2 a
@@ -1387,12 +1457,24 @@ def engine(torch, dev, card, kernels, reset_counts, counts):
     frames = [seq.frame(i).clamp(0, 255).to(torch.uint8).cpu().numpy()
               for i in range(ENG_SEQ["n_frames"])]
 
-    def make(device, cand_min=ENG_CAND_MIN, capacity=ENG_MAP, **kw):
+    def make(device, cand_min=ENG_CAND_MIN, capacity=ENG_MAP,
+             map_graphs=True, **kw):
+        """An engine; ``map_graphs=False`` runs its MapMakers' programs
+        eagerly (``MapMaker(graphs=False)``) beside its own graphed ones."""
         cfg = EngineConfig(
             camera=CameraConfig(params=REF_PARAMS, image_size=SIZE),
             mapmaker=MapMakerConfig(candidate_min_shi_tomasi_score=cand_min))
-        return englib.SLAMEngine(cfg, image_size=SIZE, device=device,
-                                 **capacity, **kw)
+        eng = englib.SLAMEngine(cfg, image_size=SIZE, device=device,
+                                **capacity, **kw)
+        if not map_graphs:
+            new_map = eng._new_map
+
+            def eager_maps():
+                new_map()
+                eng.mapmaker.graphs = False
+            eng._new_map = eager_maps
+            eng.mapmaker.graphs = False
+        return eng
 
     targets, expected = engine_targets(), expected_launches
 
@@ -1523,19 +1605,21 @@ def engine(torch, dev, card, kernels, reset_counts, counts):
           f"{busy_us / 1e6 / prof_wall * 100:.1f}% busy; launches {launches}"
           f"  [{card}]")
     engine_outcome(lat, seq, torch, "11c")
-    # The same frames with the programs run eagerly, in this process.
-    eager, times_e = make(dev, graphs=False), []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    lat_e = run(eager, frames[:n_main], times_e)
-    torch.cuda.synchronize()
-    c_e = latency_stats(lat_e, times_e)
-    c_e.update(fps=n_main / (time.perf_counter() - t0))
-    print(f"[11c] graphed vs eager programs, frames 0..{n_main - 1}: p50 "
-          f"{c['p50']:.1f} vs {c_e['p50']:.1f} ms, p95 {c['p95']:.1f} vs "
-          f"{c_e['p95']:.1f} ms, {c['fps']:.2f} vs {c_e['fps']:.2f} FPS "
-          f"({c['n']} / {c_e['n']} frames, keyframes apart)  [{card}]")
-    engine_outcome(lat_e, seq, torch, "11c eager")
+    print_captures("11c", eng)
+    # The same frames with the MapMaker's programs run eagerly, and with
+    # every program run eagerly, in this process.
+    variants = {"graphed": c}
+    for tag, kw in (("MapMaker eager", dict(map_graphs=False)),
+                    ("all eager", dict(graphs=False))):
+        eng_v, times_v = make(dev, **kw), []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lat_v = run(eng_v, frames[:n_main], times_v)
+        torch.cuda.synchronize()
+        variants[tag] = latency_stats(lat_v, times_v)
+        variants[tag].update(fps=n_main / (time.perf_counter() - t0))
+        engine_outcome(lat_v, seq, torch, f"11c {tag}")
+    print_variants("11c", f"frames 0..{n_main - 1}", variants, card)
 
     # ---- 11d. relocalization and reset (tests/test_engine_reloc.py) ----
     rseq = synth.SyntheticSequence(REF_PARAMS, image_size=SIZE, device=dev,
@@ -1601,24 +1685,29 @@ def engine(torch, dev, card, kernels, reset_counts, counts):
                                    **GROW_SEQ)
     gframes = [gseq.frame(i).clamp(0, 255).to(torch.uint8).cpu().numpy()
                for i in range(GROW_SEQ["n_frames"])]
-    grown, gjobs, secs, gtimes = {}, {}, {}, []
+    grown, gjobs, secs, gtimes, mtimes = {}, {}, {}, [], []
     for tag, where, threads in (("card", dev, n_threads),
+                                ("card, MapMaker eager", dev, n_threads),
                                 ("CPU", "cpu", n_threads),
                                 ("CPU 1 thread", "cpu", 1)):
         torch.set_num_threads(threads)
         eng = make(where, cand_min=INIT_CAND_MIN, deterministic=True,
-                   draws=HostDraws(englib, 0, where))
+                   draws=HostDraws(englib, 0, where),
+                   map_graphs="eager" not in tag)
         gjobs[tag] = dict.fromkeys(MAPMAKER_JOBS, 0)
         watch_mapmaker(eng.mapmaker, gjobs[tag])
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
         with CallCounts(targets) as calls:
-            grown[tag] = run(eng, gframes, gtimes if tag == "card" else None)
+            grown[tag] = run(eng, gframes, {"card": gtimes,
+                                            "card, MapMaker eager": mtimes}
+                             .get(tag))
         torch.cuda.synchronize()
         secs[tag] = time.perf_counter() - t0
         if tag == "card":
             launches, want = counts(), expected(calls.n)
+            grown_map = eng.snapshot()
     torch.set_num_threads(n_threads)
     check(launches == want, f"phase-11e launch counts {launches} differ "
           f"from {want}")
@@ -1655,9 +1744,29 @@ def engine(torch, dev, card, kernels, reset_counts, counts):
     check(not bad, "11e: card and CPU engines differ in outcome")
     check(d_R <= GROW_ROT_TOL and d_t <= GROW_T_TOL,
           "11e: card and CPU engine poses differ")
+    # The MapMaker's graphs against its eager programs, end to end.
+    bad_m, m_R, m_t = engine_diffs(grown["card, MapMaker eager"], card_g,
+                                   first_g, torch)
+    print(f"[11e] card, the MapMaker's programs graphed vs eager: outcome "
+          f"differences {bad_m}; point counts that differ "
+          f"{point_diffs(grown['card, MapMaker eager'], card_g)}; |dR| "
+          f"{m_R:.2e}, |dt| / |t| {m_t:.2e}; MapMaker jobs equal "
+          f"{gjobs['card'] == gjobs['card, MapMaker eager']}")
+    check(not bad_m and gjobs["card"] == gjobs["card, MapMaker eager"],
+          "11e: the MapMaker's graphs and its eager programs differ in "
+          "outcome")
+    variants = {}
+    for tag, times_v in (("graphed", gtimes),
+                         ("MapMaker eager", mtimes)):
+        key = "card" if tag == "graphed" else "card, MapMaker eager"
+        variants[tag] = latency_stats(grown[key], times_v)
+        variants[tag].update(fps=len(gframes) / secs[key])
+    print_variants("11e", f"{len(gframes)} frames, deterministic",
+                   variants, card)
     return dict(frames=frames, seq=seq, gframes=gframes, gseq=gseq,
                 make=make, run=run, targets=targets, expected=expected,
-                sync=c, grown=card_g, grown_times=gtimes, relocs=relocs)
+                sync=c, grown=card_g, grown_times=gtimes, relocs=relocs,
+                grown_map=grown_map)
 
 
 def wait_for(cond, seconds=30.0):
@@ -1698,8 +1807,10 @@ def async_engine(torch, dev, card, kernels, reset_counts, counts, mods, ph11):
     """Phase 12: ``SLAMEngine(async_mapping=True)`` on phase 11's 240
     frames in latency mode, beside 11c's synchronous numbers; 12b: on
     11e's orbit, where integrations add points, then a reset while a
-    mapping pass is in flight, and ``close()``."""
+    mapping pass is in flight, and ``close()``. Its device syncs wait
+    for a capture of the worker's to end (``graphs.synchronize``)."""
     from torch.profiler import ProfilerActivity, profile
+    from ptam_cg_tpu_torch.models import graphs
     from ptam_cg_tpu_torch.models import map_state as ms
     from ptam_cg_tpu_torch.models import mapmaker
     make, run, frames, seq = ph11["make"], ph11["run"], ph11["frames"], \
@@ -1732,30 +1843,30 @@ def async_engine(torch, dev, card, kernels, reset_counts, counts, mods, ph11):
     map_stream = eng._map_stream.cuda_stream
     n_main = len(frames) - ENG_PROFILE
     times = []
-    torch.cuda.synchronize()
+    graphs.synchronize()
     reset_counts()
     t0 = time.perf_counter()
     with CallCounts(ph11["targets"] + [(ms, "copy_map")]) as calls:
         infos = run(eng, frames[:n_main], times)
-        torch.cuda.synchronize()
+        graphs.synchronize()
         wall = time.perf_counter() - t0
         prof = profile(activities=[ProfilerActivity.CUDA])
         with gate:
-            torch.cuda.synchronize()
+            graphs.synchronize()
             prof.start()
         tp = time.perf_counter()
         infos += run(eng, frames[n_main:])
-        torch.cuda.synchronize()
+        graphs.synchronize()
         prof_wall = time.perf_counter() - tp
         with gate:
-            torch.cuda.synchronize()
+            graphs.synchronize()
             prof.stop()
         check(wait_for(lambda: not eng.mapmaker.kf_queue), "12: the worker "
               "did not drain its keyframe queue")
         t1 = time.perf_counter()
         eng.close()
         close_s = time.perf_counter() - t1
-        torch.cuda.synchronize()
+        graphs.synchronize()
     launches = counts()
     by_stream = {name: dict(mod.launches_by_stream)
                  for name, mod in mods.items()}
@@ -1812,22 +1923,24 @@ def async_engine(torch, dev, card, kernels, reset_counts, counts, mods, ph11):
           f"{copy_ms:.4f} ms, bound (read + write at the HBM rate) "
           f"{2 * nbytes / HBM_BYTES_S * 1e6:.2f} us  [{card}]")
     async_outcome(infos, seq, torch, "12")
+    print_captures("12", eng)
     check(close_s < 10.0, "12: close() did not join within 10 s")
-    # The same frames with the programs run eagerly, in this process.
-    eager, times_e = make(dev, async_mapping=True, graphs=False), []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    infos_e = run(eager, frames[:n_main], times_e)
-    torch.cuda.synchronize()
-    a_e = latency_stats(infos_e, times_e)
-    a_e.update(fps=n_main / (time.perf_counter() - t0))
-    eager.close()
-    print(f"[12] graphed vs eager programs with the worker, frames "
-          f"0..{n_main - 1}: p50 {a['p50']:.1f} vs {a_e['p50']:.1f} ms, p95 "
-          f"{a['p95']:.1f} vs {a_e['p95']:.1f} ms, {a['fps']:.2f} vs "
-          f"{a_e['fps']:.2f} FPS ({a['n']} / {a_e['n']} frames, keyframes "
-          f"apart)  [{card}]")
-    async_outcome(infos_e, seq, torch, "12 eager")
+    # The same frames with the MapMaker's programs run eagerly, and with
+    # every program run eagerly, in this process.
+    variants = {"graphed": a}
+    for tag, kw in (("MapMaker eager", dict(map_graphs=False)),
+                    ("all eager", dict(graphs=False))):
+        eng_v, times_v = make(dev, async_mapping=True, **kw), []
+        graphs.synchronize()
+        t0 = time.perf_counter()
+        infos_v = run(eng_v, frames[:n_main], times_v)
+        graphs.synchronize()
+        variants[tag] = latency_stats(infos_v, times_v)
+        variants[tag].update(fps=n_main / (time.perf_counter() - t0))
+        eng_v.close()
+        async_outcome(infos_v, seq, torch, f"12 {tag}")
+    print_variants("12", f"with the worker, frames 0..{n_main - 1}",
+                   variants, card)
 
     # ---- 12b. 11e's orbit: integrations add points; a reset mid-pass ----
     gframes, gseq = ph11["gframes"], ph11["gseq"]
@@ -2695,6 +2808,416 @@ def programs_phase(torch, dev, card, mods, seq, m, ff0, frames, im_kf,
     tmpdir.cleanup()
 
 
+#: Phase 18's MapMaker programs of the keyframe integration, with the K2
+#: launches each graph holds (2 in the re-find of the new keyframe, 3 an
+#: epipolar level).
+INTEGRATION_JOBS = (("insert", 2), ("epi_l3", 3), ("epi_l0", 3),
+                    ("epi_l1", 3), ("epi_l2", 3))
+#: Phase 18's LM chunks: (case, chunk limits; None for "iterations so far
+#: + 1", JAX's step-flags program).
+CHUNK_CASES = (("+1", [None] * 4), ("+5", [5, 10, 15, 20]), ("full", [20]))
+
+
+def graph_nodes(path):
+    """(nodes, conditional nodes) of a CUDA graph's DOT dump, the nodes of
+    its conditional bodies included."""
+    return dot_nodes(path)[0], open(path).read().count("CONDITIONAL")
+
+
+class ProgramBuffers:
+    """A MapMaker's program buffers as they are at construction, to put
+    back before each timed call."""
+
+    def __init__(self, p):
+        self.p = p
+        self.saved = [t.clone() for t in self.tensors()]
+
+    def tensors(self):
+        from ptam_cg_tpu_torch.utils import tree
+        p = self.p
+        return list(tree.tensors((p.map, p.failure, p.new_pts, p.refind,
+                                  p.slot, p.tot, p.packed, p.k0, p.src,
+                                  p.newest, p.adjust, p.fixed, p.pmask)))
+
+    def restore(self):
+        for buf, x in zip(self.tensors(), self.saved):
+            buf.copy_(x)
+
+
+def timed_numbers(torch, card, tag, graph, debug_path, replay, eager,
+                  setup_g, setup_e, extra=""):
+    """Phase 18's numbers of one program: capture s, graph nodes and IF
+    nodes (from its dump), a replay's ms by CUDA events and by the host
+    clock and its device us, and the eager call's beside them (each call
+    after its ``setup``)."""
+    nodes, n_cond = graph_nodes(debug_path)
+
+    def host(fn, setup, reps):
+        times = []
+        for _ in range(reps):
+            arg = setup()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(arg)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    r_ms = time_ms(replay, torch, reps=INT_REPS, setup=setup_g)
+    r_host = host(replay, setup_g, INT_REPS)
+    r_us, _ = device_us(replay, torch, n=1, setup=setup_g)
+    e_ms = time_ms(eager, torch, reps=3, setup=setup_e)
+    e_host = host(eager, setup_e, 3)
+    e_us, e_n = device_us(eager, torch, n=1, setup=setup_e)
+    print(f"[18] {tag}: capture {graph.capture_s:.3f} s; {nodes} graph "
+          f"nodes ({n_cond} conditional: {graph.n_if} IF, {graph.n_while} "
+          f"WHILE), against {e_n:.0f} kernels an eager call; a replay "
+          f"{r_ms:.3f} ms (CUDA events), {r_host:.3f} ms (host clock), "
+          f"device {fmt_us(r_us)}; eager {e_ms:.3f} ms (CUDA events), "
+          f"{e_host:.3f} ms (host clock), device {fmt_us(e_us)}"
+          f"{extra}  [{card}]")
+    return dict(nodes=nodes, n_cond=n_cond, replay_ms=r_ms, eager_ms=e_ms)
+
+
+def map_programs_phase(torch, dev, card, mods, kernels, ph6, ph11):
+    """Phase 18: the MapMaker's programs (``MapPrograms``) and BA's LM
+    chunk (``bundle.ChunkProgram``) as CUDA graphs against the same
+    programs run eagerly on the card (``MapMaker(graphs=False)``): phase
+    6's integration phase by phase, a span re-find on 11e's grown map,
+    local BA's masks, extraction at the local and global tiers, BA and its
+    write-back, GC and the plane alignment on phase 9's 64-keyframe map,
+    all bit for bit; the LM chunk on phase 8's tiers (chunks of one step,
+    five and all), a state at lambda's floor and a blown solve, in state
+    and flags bit for bit, a step's retries inside the graph, and one host
+    read a chunk. Each program's capture, nodes, conditional nodes,
+    replay and eager times; the captures made and their memory pool."""
+    import os
+    import tempfile
+
+    from ptam_cg_tpu_torch.config import BundleConfig, MapMakerConfig
+    from ptam_cg_tpu_torch.io import synth
+    from ptam_cg_tpu_torch.models import bundle, graphs, mapmaker
+    from ptam_cg_tpu_torch.models import map_state as ms
+    from ptam_cg_tpu_torch.utils import mest
+    from ptam_cg_tpu_torch.utils.tree import tensors as tree_tensors
+    tmpdir = tempfile.TemporaryDirectory()
+    makers = []
+
+    def maker(m, cam, graphed, tag):
+        path = os.path.join(tmpdir.name, tag) if graphed else None
+        if path:
+            os.makedirs(path, exist_ok=True)
+        mm = mapmaker.MapMaker(ms.copy_map(m), cam, SIZE, deterministic=True,
+                               graphs=graphed, graph_debug_dir=path)
+        mm._n_points_hint = int(m.point_valid.sum())
+        if graphed:
+            makers.append((tag, mm))
+        return mm
+
+    def differ(a, b):
+        """Fields of the two MapMakers' maps and masks that differ."""
+        out = [f.name for f in dataclasses.fields(a.map)
+               if not torch.equal(getattr(a.map, f.name),
+                                  getattr(b.map, f.name))]
+        for name in ("failure_mask", "new_point_mask"):
+            if not torch.equal(getattr(a, name), getattr(b, name)):
+                out.append(name)
+        return out
+
+    def k2():
+        graphs.settle_launches()
+        return mods["gather_windows"].launches
+
+    # ---- phase 6's integration, phase by phase ----
+    cam, res = ph6["cam"], ph6["res"]
+    meas = dict(point=res.meas_point, pos=res.meas_pos,
+                level=res.meas_level, subpix=res.meas_subpix,
+                valid=res.meas_valid)
+    g, e = (maker(ph6["m"], cam, x, "integration") for x in (True, False))
+    bufs, per_phase = {}, []
+    with PlainCalls(mods) as plain, CallCounts(
+            [(mapmaker, "refind_in_kf"),
+             (mapmaker, "add_points_epipolar")]) as cc:
+        before = k2()
+        for mm in (g, e):
+            mm.add_keyframe(ph6["ff"], ph6["pose"], meas, res.depth_mean,
+                            res.depth_sigma)
+        graphed_k2 = 0
+        for label, _ in INTEGRATION_JOBS:
+            for mm, tag in ((g, "graphed"), (e, "eager")):
+                k2_before = k2()
+                if label == "insert":
+                    mm._integrate_start()
+                else:
+                    # The state before the phase, for its timed calls.
+                    bufs[label, tag] = ProgramBuffers(mm.programs)
+                    mm._integrate_advance()
+                if mm is g:
+                    graphed_k2 += k2() - k2_before
+            per_phase.append((label, differ(g, e)))
+        slots = [mm._drain_integrate(block=True) for mm in (g, e)]
+        packed = [mm.programs.packed.tolist() for mm in (g, e)]
+    launched = k2() - before
+    want = 2 * cc.n["refind_in_kf"] + 3 * cc.n["add_points_epipolar"]
+    held = {label: (g.programs.jobs[label].graph.launches.get(
+        mods["gather_windows"], 0), dot_nodes(
+        g.programs.jobs[label].debug_path)[1]["gather_windows"])
+        for label, _ in INTEGRATION_JOBS}
+    print(f"[18] phase 6's integration, graphs vs eager programs: fields "
+          f"differing after each phase {per_phase}; (slot, n_added) "
+          f"{packed}; K2 launches of both {launched}, the calls' {want} "
+          f"({cc.n}, warm-ups included); K2 in each graph (tally, dump) "
+          f"{held}; plain-version calls in the captures {plain.n}")
+    check(all(not d for _, d in per_phase) and packed[0] == packed[1]
+          and slots[0] == slots[1], "18: the integration's graphs differ "
+          "from its eager programs")
+    check(plain.n == 0, "18: an integration capture called a plain version")
+    check(launched == want and all(held[lb] == (n, n)
+                                   for lb, n in INTEGRATION_JOBS),
+          "18: the integration graphs' K2 launches differ from the calls'")
+    kernels["gather_windows"]["launches"] += graphed_k2
+    for label, _ in INTEGRATION_JOBS[1:]:
+        gj, ej = g.programs.jobs[label], e.programs.jobs[label]
+        gb, eb = bufs[label, "graphed"], bufs[label, "eager"]
+        timed_numbers(torch, card, f"integration {label}", gj.graph,
+                      gj.debug_path, lambda _, j=gj: j.graph.replay(),
+                      lambda _, j=ej: j.run(), gb.restore, eb.restore)
+    gj = g.programs.jobs["insert"]
+    nodes, n_cond = graph_nodes(gj.debug_path)
+    print(f"[18] integration insert: capture {gj.graph.capture_s:.3f} s; "
+          f"{nodes} graph nodes, {n_cond} conditional (not timed: a replay "
+          f"inserts into the next free slot)  [{card}]")
+
+    # ---- a span re-find of a failure queue on 11e's grown map ----
+    gm = ph11["grown_map"]
+    K = gm.kf_valid.shape[0]
+    probe = maker(gm, cam, False, "probe")
+    probe.bundle_adjust_all()
+    queue = probe.failure_mask.clone()
+    # Every other keyframe also selects the points it does not measure, so
+    # that some slots have work and some have none.
+    valid = gm.kf_valid.nonzero()[:, 0].tolist()
+    extra = torch.zeros_like(queue)
+    for k in valid[::2]:
+        extra[k] = gm.point_valid & ~gm.meas_valid[k]
+    mask = queue | extra
+    work = (gm.kf_valid & torch.any(
+        mask & gm.point_valid & ~gm.meas_valid & ~gm.never_retry,
+        dim=-1)).tolist()
+    g, e = (maker(gm, cam, x, "refind") for x in (True, False))
+    calls, pre = {}, {}
+    for mm, tag in ((g, "graphed"), (e, "eager")):
+        mm._load()
+        mm._unload()
+        pre[tag] = ProgramBuffers(mm.programs)
+        for _ in range(2):
+            # The first round captures; the second, from the same state,
+            # is the one counted.
+            pre[tag].restore()
+            mm._start_refind_task(mask)
+            before = k2()
+            with CallCounts([(mapmaker, "refind_in_kf")]) as cc:
+                while mm._refind_task is not None:
+                    mm._refind_advance()
+        calls[tag] = (cc.n["refind_in_kf"], k2() - before)
+    d = differ(g, e)
+    for mm, tag in ((g, "graphed"), (e, "eager")):
+        # The buffers at the task's start, for the timed replays.
+        pre[tag].restore()
+        mm._start_refind_task(mask)
+        mm.programs.k0.zero_()
+        bufs[tag] = ProgramBuffers(mm.programs)
+    n_work = sum(work)
+    print(f"[18] span re-find on 11e's grown map ({len(valid)} keyframes in "
+          f"{K} slots; BA's failure queue {int(queue.sum())} entries, every "
+          f"other keyframe's unmeasured points besides): slots with work "
+          f"{[k for k, w in enumerate(work) if w]}; (re-finds, K2 launches) "
+          f"graphed {calls['graphed']}, eager {calls['eager']}; fields "
+          f"differing {d}")
+    check(not d, "18: the span re-find's graph differs from its eager "
+          "program")
+    check(calls["graphed"] == calls["eager"] == (n_work, 2 * n_work)
+          and 0 < n_work < K, "18: the span re-find's re-finds or K2 "
+          "launches differ from the calls'")
+    label = f"refind_w{len(g._span_ks[0])}"
+    gj, ej = g.programs.jobs[label], e.programs.jobs[label]
+    timed_numbers(torch, card, f"span re-find ({label}, {n_work} of "
+                  f"{len(g._span_ks[0])} slots with work)", gj.graph,
+                  gj.debug_path, lambda _: gj.graph.replay(),
+                  lambda _: ej.run(), bufs["graphed"].restore,
+                  bufs["eager"].restore)
+
+    # ---- BA's programs on phase 9's 64-keyframe map ----
+    m64, cam64 = synth.ba_map(**BA_MAP, image_size=SIZE, device=dev)
+    newest = BA_MAP["n_kfs"] - 1
+    g, e = (maker(m64, cam64, x, "ba") for x in (True, False))
+    steps = []
+    tiers = {"local": BA_TIERS["local"], "global": BA_TIERS["global"]}
+    u = torch.rand((MapMakerConfig().plane_aligner_ransacs,
+                    m64.point_pos.shape[0]), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(3))
+
+    def finish(mm):
+        while mm._ba_job is not None:
+            mm._ba_poll(block=True)
+
+    for what, call in (
+            ("local masks + extraction at the local tier", lambda mm: (
+                setattr(mm, "_ba_caps", lambda: tiers["local"]),
+                mm.bundle_adjust_recent(newest, start_only=True))),
+            ("local BA's chunks and write-back", finish),
+            ("global BA at the global tier", lambda mm: (
+                setattr(mm, "_ba_caps", lambda: tiers["global"]),
+                mm.bundle_adjust_all())),
+            ("GC", lambda mm: (mm.mark_dirty(), mm.handle_bad_points())),
+            ("plane alignment", lambda mm: mm.plane_align(u))):
+        for mm in (g, e):
+            call(mm)
+        d = differ(g, e)
+        if "extraction" in what:
+            tg, te = g._ba_job["tier"], e._ba_job["tier"]
+            d += [f for f, x, y in zip(
+                ("problem", "mk", "mp", "cam_idx", "pt_idx", "counts"),
+                (tg.prob, tg.mk, tg.mp, tg.cam_idx, tg.pt_idx, tg.counts),
+                (te.prob, te.mk, te.mp, te.cam_idx, te.pt_idx, te.counts))
+                if not all(torch.equal(a, b) for a, b in zip(
+                    tree_tensors(x), tree_tensors(y)))]
+        steps.append((what, d))
+    print(f"[18] phase 9's map, graphs vs eager programs (fields that "
+          f"differ): {steps}; reset requested {g.reset_requested}, "
+          f"{e.reset_requested}")
+    check(all(not d for _, d in steps) and not g.reset_requested,
+          "18: BA's programs differ from their eager runs")
+    p = g.programs
+    for label in sorted(p.jobs):
+        if label.startswith(("extract", "apply", "local", "gc", "plane")):
+            nodes, n_cond = graph_nodes(p.jobs[label].debug_path)
+            print(f"[18] {label}: capture "
+                  f"{p.jobs[label].graph.capture_s:.3f} s, {nodes} graph "
+                  f"nodes, {n_cond} conditional  [{card}]")
+    for label in ("gc", "plane_align"):
+        gj, ej = p.jobs[label], e.programs.jobs[label]
+        gb, eb = ProgramBuffers(p), ProgramBuffers(e.programs)
+        timed_numbers(torch, card, label, gj.graph, gj.debug_path,
+                      lambda _, j=gj: j.graph.replay(),
+                      lambda _, j=ej: j.run(), gb.restore, eb.restore)
+
+    # ---- the LM chunk ----
+    cfg, kind = BundleConfig(), mest.TUKEY
+    problems = []
+    for tier, (C, P, M) in BA_TIERS.items():
+        prob, cam_b = synth.ba_problem(C, P, M, seed=0, fixed=(0, C // 2),
+                                       device=dev)
+        problems.append((tier, prob, cam_b, None))
+    # A state at lambda's floor (the run's first ten tries, then lambda
+    # 1e-10) and a blown solve (every inverse noise 1e18: the normal
+    # equations overflow, the Cholesky fails, the state fails).
+    prob, cam_b = synth.ba_problem(*BA_TIERS["local"], seed=0,
+                                   fixed=(0, BA_TIERS["local"][0] // 2),
+                                   device=dev)
+    s10, _ = bundle.lm_chunk(bundle.init_lm(prob, cfg), cam_b, cfg, kind, 10,
+                             bundle.INIT_FLAGS)
+    problems.append(("local at lambda's floor", s10.problem, cam_b, 1e-10))
+    problems.append(("local, blown solve", dataclasses.replace(
+        prob, meas_sqrt_inv_noise=torch.where(
+            prob.meas_valid, 1e18, prob.meas_sqrt_inv_noise)), cam_b, None))
+    # The chunk programs share a pool, which must keep a graph alive:
+    # they are all kept.
+    pool, chunk_progs = torch.cuda.graph_pool_handle(), []
+    retried, failed_seen, results = 0, False, []
+    steps_n = [0]
+    parts = bundle._step_parts
+
+    def counted(*a, **kw):
+        steps_n[0] += 1
+        return parts(*a, **kw)
+    for tier, prob, cam_b, lam in problems:
+        start = bundle.init_lm(prob, cfg)
+        if lam is not None:
+            start = dataclasses.replace(start, lam=torch.full_like(start.lam,
+                                                                   lam))
+        prog = bundle.ChunkProgram(start, cam_b, cfg, kind, True,
+                                   os.path.join(tmpdir.name,
+                                                f"chunk_{len(results)}.dot"),
+                                   pool)
+        chunk_progs.append(prog)
+        for case, limits in CHUNK_CASES:
+            if "floor" in tier or "blown" in tier:
+                if case != "full":
+                    continue
+            gs, fg = start, bundle.INIT_FLAGS
+            es, fe = start, bundle.INIT_FLAGS
+            same, tries, steps_case = True, 0, 0
+            for lim in limits:
+                limit = fe[1] + 1 if lim is None else lim
+                if fe[0] or fe[2] or fe[1] >= limit:
+                    break
+                i0 = fe[1]
+                steps_n[0] = 0
+                bundle._step_parts = counted
+                try:
+                    es, fe = bundle.lm_chunk(es, cam_b, cfg, kind, limit, fe)
+                finally:
+                    bundle._step_parts = parts
+                gs, fg = prog(gs, limit, fg)
+                same &= fg == fe and all(
+                    torch.equal(a, b) for a, b in zip(
+                        bundle._state_tensors(gs), bundle._state_tensors(es)))
+                tries += fe[1] - i0
+                steps_case += steps_n[0]
+            retried += tries > steps_case
+            failed_seen |= bool(fe[2])
+            results.append((tier, case, fe, tries, steps_case, same))
+    print(f"[18] LM chunk graph vs eager lm_chunk (tier, chunks, final "
+          f"flags, tries, steps, state and flags bit for bit): {results}")
+    check(all(r[-1] for r in results), "18: an LM chunk graph differs from "
+          "the eager chunk")
+    check(retried > 0, "18: no step retried inside a chunk graph")
+    check(failed_seen, "18: the blown solve did not set failed")
+    # Host reads in a chunk, and the numbers of the local and global tiers.
+    for tier, prob, cam_b, _ in problems[:2]:
+        start = bundle.init_lm(prob, cfg)
+        prog = bundle.ChunkProgram(start, cam_b, cfg, kind, True,
+                                   os.path.join(tmpdir.name,
+                                                f"chunk_{tier}.dot"), pool)
+        chunk_progs.append(prog)
+        prog(start, 5, bundle.INIT_FLAGS)
+        saved = [t.clone() for t in bundle._state_tensors(start)]
+
+        def restore(prog=prog, saved=saved):
+            for buf, x in zip(bundle._state_tensors(prog.state), saved):
+                buf.copy_(x)
+        restore()
+        g_reads = sync_count(lambda: prog(prog.state, 5, bundle.INIT_FLAGS),
+                             torch)
+        e_reads = sync_count(lambda: bundle.lm_chunk(
+            start, cam_b, cfg, kind, 5, bundle.INIT_FLAGS), torch)
+        _, f5 = bundle.lm_chunk(start, cam_b, cfg, kind, 5,
+                                bundle.INIT_FLAGS)
+        print(f"[18] BA {tier}: host reads in a 5-iteration chunk (sync "
+              f"debug mode): graphed {g_reads}, eager {e_reads} "
+              f"({f5[1]} tries)")
+        check(g_reads == 1 and e_reads == f5[1],
+              f"18: BA {tier}: host reads a chunk {g_reads} graphed, "
+              f"{e_reads} eager")
+        timed_numbers(torch, card, f"LM chunk, {tier} tier, 5 iterations",
+                      prog.graph, prog.debug_path,
+                      lambda _, prog=prog: prog(prog.state, 5,
+                                                bundle.INIT_FLAGS),
+                      lambda s, cam_b=cam_b: bundle.lm_chunk(
+                          s, cam_b, cfg, kind, 5, bundle.INIT_FLAGS),
+                      restore, lambda start=start: start,
+                      extra=f"; pool {graphs.pool_bytes(pool) / 2**20:.1f} "
+                            f"MiB (all chunk graphs so far)")
+    # The captures made and their pools.
+    for tag, mm in makers:
+        p = mm.programs
+        caps = [(lb, round(s, 3)) for lb, s in p.captures]
+        print(f"[18] MapMaker {tag}: {len(caps)} captures {caps}; pool "
+              f"{graphs.pool_bytes(p.pool) / 2**20:.1f} MiB  [{card}]")
+    tmpdir.cleanup()
+
+
 def calibration_and_scene(torch, dev, card):
     """Phase 16: ``apps.run_calib --synthetic 5`` at 640x480 on the card
     (RMS, the parameters against the truth, the card against the CPU
@@ -2797,6 +3320,7 @@ def main():
     from ptam_cg_tpu_torch.kernels import fast as kfast
     from ptam_cg_tpu_torch.kernels import gather as kgather
     from ptam_cg_tpu_torch.kernels import shi_tomasi as kshi
+    from ptam_cg_tpu_torch.models import graphs
     from ptam_cg_tpu_torch.models import keyframe as kflib
     from ptam_cg_tpu_torch.models import map_state as ms
     from ptam_cg_tpu_torch.models import mapmaker, tracker
@@ -2811,11 +3335,13 @@ def main():
     mods = {"fast10": kfast, "gather_windows": kgather, "shi_tomasi": kshi}
 
     def reset_launch_counts():
+        graphs.settle_launches()
         for mod in mods.values():
             mod.launches = 0
             mod.launches_by_stream.clear()
 
     def launch_counts():
+        graphs.settle_launches()
         return {name: mod.launches for name, mod in mods.items()}
 
     # ---- 1. device and build ----
@@ -2830,11 +3356,11 @@ def main():
           f"count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     builds = [(name, ()) for name in KERNELS] + [
-        ("shi_tomasi", v) for v in ST_VARIANTS if v]
+        ("shi_tomasi", v) for v in ST_VARIANTS if v] + [(GRAPH_COND, ())]
     _build.load_all(builds)
-    print(f"[1] built and loaded {len(KERNELS)} kernels and "
-          f"{len(builds) - len(KERNELS)} variants of K3 in "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"[1] built and loaded {len(KERNELS)} kernels, "
+          f"{len(builds) - len(KERNELS) - 1} variants of K3 and the graphs' "
+          f"conditional-node helper in {time.perf_counter() - t0:.1f} s")
     for name, v in builds:
         seconds, log = _build.build_info(name, v)
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
@@ -3394,6 +3920,9 @@ def main():
           f"{statistics.median(int_host) * 1e3:.3f} ms, device "
           f"{fmt_us(i_dev)} in {i_n:.0f} kernels  [{card}]")
 
+    ph6 = dict(m=ms.copy_map(m_before), ff=ff, pose=state_kf.pose,
+               res=res_kf, cam=seq.cam)
+
     # ---- 7. card against CPU for the integration ----
     t1 = time.perf_counter()
     cpu_m, _, cpu_sn = integrate(
@@ -3476,6 +4005,9 @@ def main():
     # ---- 17. the engine's programs as CUDA graphs ----
     programs_phase(torch, dev, card, mods, seq, m, ff0, frames,
                    frames[N_TRACK_KF - 1], ph11)
+
+    # ---- 18. the MapMaker's programs and BA's chunk as CUDA graphs ----
+    map_programs_phase(torch, dev, card, mods, kernels, ph6, ph11)
 
     check(not any(k == "jax" or k.startswith("jax.") for k in sys.modules),
           "jax was imported")

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from ptam_cg_tpu_torch.camera import atan
-from ptam_cg_tpu_torch.models import programs
+from ptam_cg_tpu_torch.models import graphs
 from ptam_cg_tpu_torch.ops import fast as fastops
 from ptam_cg_tpu_torch.ops import image as imops
 from ptam_cg_tpu_torch.utils import se3 as se3lib
@@ -225,7 +225,7 @@ def make_corner_refiner(im_shape: Tuple[int, int], patch_size: int = 20,
               & (torch.abs(gain) > 20.0) & (err < 25.0))
         return pos, angles, mean, gain, ok
 
-    graphs = {}     # batch size -> programs.Graph
+    fits = {}       # batch size -> graphs.Graph
 
     def refine(im, pos0, angles0, mean0, gain0):
         theta = torch.cat([pos0, angles0, mean0[:, None], gain0[:, None]],
@@ -236,11 +236,11 @@ def make_corner_refiner(im_shape: Tuple[int, int], patch_size: int = 20,
         # (JAX's jitted fit is one program too), captured at the first
         # call of each batch size and replayed on copies of the inputs.
         n = theta.shape[0]
-        if n not in graphs:
-            graphs[n] = programs.Graph(fit, (im.clone(), theta.clone()))
-        graph = graphs[n]
+        if n not in fits:
+            fits[n] = graphs.Graph(fit, (im.clone(), theta.clone()))
+        graph = fits[n]
         for buf, x in zip(graph.inputs, (im, theta)):
-            programs.fill(buf, x)
+            graphs.fill(buf, x)
         return tuple(o.clone() for o in graph.replay())
 
     return refine

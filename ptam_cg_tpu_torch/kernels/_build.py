@@ -155,6 +155,14 @@ def count_launches(module, stream: int, n: int) -> None:
             module.launches_by_stream.get(stream, 0) + n)
 
 
+def tally_key(key) -> None:
+    """Add one to ``key`` in this thread's open ``tally()``, if any (a
+    capture records the calls a replay stands for so)."""
+    tally_ = getattr(_LOCAL, "tally", None)
+    if tally_ is not None:
+        tally_[key] = tally_.get(key, 0) + 1
+
+
 @contextlib.contextmanager
 def tally():
     """Collect this thread's launches as {wrapper module: count} instead of

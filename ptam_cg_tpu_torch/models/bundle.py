@@ -19,10 +19,21 @@ of a (camera, point) pair. The slots come from ``MeasLayout``, built once
 a problem (the measurement table does not change during BA) with one host
 read: the most measurements any point has and any pair has.
 
-JAX runs the lambda retries as a device ``while_loop``; here the host reads
-one flag vector a lambda try (``lm_step_flags``): whether to retry, and
-the step's flags should it not, which the steps of a chunk
-(``lm_chunk``) go on. A step with n retries reads n + 1 times.
+JAX runs a chunk of LM steps, and each step's lambda retries, as device
+``while_loop``s. ``lm_chunk`` is that chunk as ``cfg.max_iterations``
+try slots (a chunk from ``iters`` makes at most ``max_iterations -
+iters`` tries): a slot runs while the chunk runs, starts a step (robust
+sigma and the accumulators) when the last try did not ask for a retry,
+and tries one lambda, whose accept, retry and flags are ``torch.where``s.
+Each slot's parts are ``graphs.if_block``s, but for its camera solve:
+cuSOLVER's ``cholesky_solve`` cannot sit in a CUDA graph's conditional
+body (so no WHILE node can hold a try), and two triangular solves, which
+can, round otherwise on the card. Eagerly the host reads one flag vector
+a try (whether the next slot runs, whether it retries, the flags), and a
+step with n retries reads n + 1 times; as a CUDA graph (``ChunkProgram``)
+the slots are IF nodes on flags on the card and a chunk reads its flags
+once. ``lm_step_flags`` is one step with a host loop of tries, bit for
+bit the same.
 
 Matrix products must be float32: ``lm_step`` raises on a card that allows
 TF32 (the JAX package pins float32 for the same reason: reduced-precision
@@ -32,11 +43,13 @@ products corrupt the normal equations).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import torch
 
 from ptam_cg_tpu_torch.camera import atan
 from ptam_cg_tpu_torch.config import BundleConfig
+from ptam_cg_tpu_torch.models import graphs
 from ptam_cg_tpu_torch.utils import mest
 from ptam_cg_tpu_torch.utils import se3 as se3lib
 
@@ -71,8 +84,8 @@ class MeasLayout:
     pt: Tensor        # (M,) int64 point, P for the dump
     pt_rank: Tensor   # (M,) int64 rank among its point's measurements
     pair_rank: Tensor  # (M,) int64 rank among its (camera, point) pair's
-    n_pt: int         # the most measurements a point has (>= 1)
-    n_pair: int       # the most measurements a pair has (>= 1)
+    n_pt: int         # the most measurements a point has, to a power of 2
+    n_pair: int       # the most measurements a pair has, to a power of 2
 
 
 @dataclasses.dataclass
@@ -98,9 +111,15 @@ def _run_rank(key: Tensor) -> Tensor:
     return torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
 
 
+def pow2ceil(n: int) -> int:
+    """Smallest power of two >= n (n >= 1)."""
+    return 1 << (max(int(n), 1) - 1).bit_length()
+
+
 def measurement_layout(prob: BundleProblem) -> MeasLayout:
     """The accumulator slots of ``prob``'s measurements; reads the two
-    largest ranks on the host (the one host read of a BA problem)."""
+    largest ranks on the host (the one host read of a BA problem) and
+    rounds each count up to a power of two."""
     C, P = prob.cam_R.shape[0], prob.pt_pos.shape[0]
     mc, mp = prob.meas_cam.long(), prob.meas_pt.long()
     live = prob.meas_valid & (mc >= 0) & (mc < C) & (mp >= 0) & (mp < P)
@@ -109,8 +128,10 @@ def measurement_layout(prob: BundleProblem) -> MeasLayout:
     pt_rank = torch.where(live, _run_rank(pt), 0)
     pair_rank = torch.where(live, _run_rank(cam * (P + 1) + pt), 0)
     n_pt, n_pair = (torch.stack([pt_rank.max(), pair_rank.max()]) + 1).tolist()
+    # Powers of two: the slots past the largest rank stay zero, and a BA
+    # chunk's CUDA graph, which bakes the counts in, serves more problems.
     return MeasLayout(cam=cam, pt=pt, pt_rank=pt_rank, pair_rank=pair_rank,
-                      n_pt=n_pt, n_pair=n_pair)
+                      n_pt=pow2ceil(n_pt), n_pair=pow2ceil(n_pair))
 
 
 def init_lm(problem: BundleProblem, cfg: BundleConfig = BundleConfig(),
@@ -321,49 +342,87 @@ def lm_step_flags(state: LMState, cam: atan.Camera,
     read: one read a try, none after."""
     prob, lay = state.problem, state.layout
     _check_float32_products(prob.pt_pos)
-    C = prob.cam_R.shape[0]
-    C6 = C * 6
-    active = prob.meas_valid & ~prob.meas_bad
+    parts = _step_parts(prob, lay, cam, cfg, mest_kind)
+    camsys = _camera_system(prob)
 
-    # ---- (i) robust sigma ----
+    def try_lambda(lam):
+        Vi, L, info, rhs = _factor_try(parts, camsys, lam)
+        return _finish_try(prob, parts, Vi, _solve_factored(L, info, rhs,
+                                                            camsys),
+                           cam, mest_kind)
+
+    return _retry_and_accept(state, cfg, try_lambda, parts.current_error,
+                             parts.new_bad)
+
+
+@dataclasses.dataclass
+class StepParts:
+    """What every lambda try of a step shares: the robust sigma, the
+    normal-equation blocks (``_accumulators``) and the step's error and
+    outlier masks."""
+    active: Tensor
+    sigma_sq: Tensor
+    U: Tensor
+    ea: Tensor
+    V9: Tensor
+    eb: Tensor
+    W: Tensor
+    current_error: Tensor
+    new_bad: Tensor
+    good: Tensor
+
+
+def _step_parts(prob: BundleProblem, lay: MeasLayout, cam: atan.Camera,
+                cfg: BundleConfig, mest_kind: int) -> StepParts:
+    """(i) the robust sigma and (ii) the jacobians and accumulators."""
+    active = prob.meas_valid & ~prob.meas_bad
     _, _, _, err_sq, bad_proj = _project_meas(
         prob.cam_R, prob.cam_t, prob.pt_pos, prob, cam)
     sigma_sq = mest.find_sigma_squared(err_sq, active & ~bad_proj, mest_kind,
                                        min_sigma=cfg.min_sigma)
+    return StepParts(active, sigma_sq, *_accumulators(
+        prob, lay, cam, sigma_sq, cfg, mest_kind))
 
-    # ---- (ii) jacobians and accumulators ----
-    U, ea, V9, eb, W, current_error, new_bad, good = _accumulators(
-        prob, lay, cam, sigma_sq, cfg, mest_kind)
+
+def _factor_try(parts: StepParts, camsys, lam):
+    """A lambda try up to the Cholesky factor of the reduced camera
+    system: (Vi (3, 3, P), L, info, rhs) (``_factor_cameras``)."""
+    W, eb = parts.W, parts.eb
     nT, T = W.shape[0], W.shape[2]
-    W_tiles = [W[t, :18 * C] for t in range(nT)]          # (18C, T) views
+    C = parts.U.shape[0]
+    C6 = C * 6
+    Vi = _vinv_cols(parts.V9, lam)                        # (3, 3, P)
+    Vi_tiles = Vi.reshape(3, 3, nT, T)
     eb_tiles = eb.T.reshape(3, nT, T)
+    S_off, rcorr = None, None
+    for t in range(nT):
+        Wt = W[t, :18 * C]                                # (18C, T)
+        WVt = _wv_product(Wt, Vi_tiles[:, :, t], C6, T)
+        s = WVt @ Wt.reshape(C6, 3 * T).T
+        r = WVt @ eb_tiles[:, t].reshape(-1)
+        S_off = s if S_off is None else S_off + s
+        rcorr = r if rcorr is None else rcorr + r
+    return (Vi,) + _factor_cameras(camsys, S_off, rcorr, parts.U, parts.ea,
+                                   lam)
 
-    camsys = _camera_system(prob)
 
-    def try_lambda(lam):
-        Vi = _vinv_cols(V9, lam)                          # (3, 3, P)
-        Vi_tiles = Vi.reshape(3, 3, nT, T)
-        S_off, rcorr = None, None
-        for t in range(nT):
-            WVt = _wv_product(W_tiles[t], Vi_tiles[:, :, t], C6, T)
-            s = WVt @ W_tiles[t].reshape(C6, 3 * T).T
-            r = WVt @ eb_tiles[:, t].reshape(-1)
-            S_off = s if S_off is None else S_off + s
-            rcorr = r if rcorr is None else rcorr + r
-        delta_cam = _solve_cameras(camsys, S_off, rcorr, U, ea, lam)
-
-        # Back-substitute the point updates.
-        corr = torch.cat([(delta_cam.reshape(-1) @ W_tiles[t].reshape(
-            C6, 3 * T)).reshape(3, T) for t in range(nT)], dim=1)
-        delta_pt = _back_substitute(Vi, eb.T - corr, prob.pt_valid)
-
-        upd_sq = torch.sum(delta_cam ** 2) + torch.sum(delta_pt ** 2)
-        new_R, new_t, new_pt, new_error = _trial(
-            prob, delta_cam, delta_pt, cam, sigma_sq, mest_kind, good,
-            new_bad, active)
-        return new_R, new_t, new_pt, upd_sq, new_error
-
-    return _retry_and_accept(state, cfg, try_lambda, current_error, new_bad)
+def _finish_try(prob: BundleProblem, parts: StepParts, Vi: Tensor,
+                delta_cam: Tensor, cam: atan.Camera, mest_kind: int):
+    """The rest of a lambda try from the camera update: back-substitute
+    the points and measure the trial. Returns (new_R, new_t, new_pt,
+    upd_sq, new_error)."""
+    W, eb = parts.W, parts.eb
+    nT, T = W.shape[0], W.shape[2]
+    C6 = delta_cam.shape[0] * 6
+    C = delta_cam.shape[0]
+    corr = torch.cat([(delta_cam.reshape(-1) @ W[t, :18 * C].reshape(
+        C6, 3 * T)).reshape(3, T) for t in range(nT)], dim=1)
+    delta_pt = _back_substitute(Vi, eb.T - corr, prob.pt_valid)
+    upd_sq = torch.sum(delta_cam ** 2) + torch.sum(delta_pt ** 2)
+    new_R, new_t, new_pt, new_error = _trial(
+        prob, delta_cam, delta_pt, cam, parts.sigma_sq, mest_kind,
+        parts.good, parts.new_bad, parts.active)
+    return new_R, new_t, new_pt, upd_sq, new_error
 
 
 def _camera_system(prob: BundleProblem):
@@ -387,6 +446,14 @@ def _solve_cameras(camsys, S_off: Tensor, rcorr: Tensor, U: Tensor,
     """The camera update (C, 6) from the Schur product S_off = W V*^-1 W^T
     (6C, 6C) and its rhs correction (6C,): S = U* - S_off solved by
     Cholesky."""
+    return _solve_factored(*_factor_cameras(camsys, S_off, rcorr, U, ea,
+                                            lam), camsys)
+
+
+def _factor_cameras(camsys, S_off: Tensor, rcorr: Tensor, U: Tensor,
+                    ea: Tensor, lam):
+    """The Cholesky factor of S + 1e-8 I, S = U* - S_off, its info and the
+    right-hand side: (L (6C, 6C), info, rhs (6C, 1))."""
     free_f, blk, fixed_eye, eye6, eyeC = camsys
     C = U.shape[0]
     C6 = 6 * C
@@ -397,14 +464,22 @@ def _solve_cameras(camsys, S_off: Tensor, rcorr: Tensor, U: Tensor,
                                                   eyeC)
     S = S * blk + fixed_eye
     rhs = rhs * free_f[:, None]
-
-    # Cholesky of S + 1e-8 I; a factorisation that fails (S not SPD)
-    # gives a NaN solve, as JAX's does, and no exception or host sync.
+    # A factorisation that fails (S not SPD) gives a NaN solve, as JAX's
+    # does, and no exception or host sync.
     L, info = torch.linalg.cholesky_ex(
         S.reshape(C6, C6) + 1e-8 * torch.eye(C6, device=dev))
-    delta_cam = torch.cholesky_solve(rhs.reshape(C6, 1), L)
+    return L, info, rhs.reshape(C6, 1)
+
+
+def _solve_factored(L: Tensor, info: Tensor, rhs: Tensor, camsys) -> Tensor:
+    """The camera update (C, 6) from ``_factor_cameras``. (cuSOLVER's
+    ``cholesky_solve`` cannot sit in a CUDA graph's conditional body, and
+    two triangular solves round otherwise on the card: ``lm_chunk`` calls
+    this outside its try slots' bodies.)"""
+    free_f = camsys[0]
+    delta_cam = torch.cholesky_solve(rhs, L)
     delta_cam = torch.where(info == 0, delta_cam, float("nan"))
-    return delta_cam.reshape(C, 6) * free_f[:, None]
+    return delta_cam.reshape(-1, 6) * free_f[:, None]
 
 
 def _back_substitute(Vi: Tensor, rb: Tensor, pt_valid: Tensor) -> Tensor:
@@ -431,55 +506,68 @@ def _trial(prob: BundleProblem, delta_cam, delta_pt, cam, sigma_sq,
     return new_R, new_t, new_pt, new_error
 
 
+def _take_try(c: "_Carry", cfg: BundleConfig, current_error: Tensor,
+              new_R, new_t, new_pt, upd_sq, new_error) -> Tensor:
+    """A lambda try's outcome, set in the carry ``c`` (its cam_R, cam_t,
+    pt_pos, lam, lam_factor, converged, failed, accepted, iters and
+    last_error): a try that does not lower the step's error raises
+    lambda (ModifyLambda_BadStep) and retries, NaN or inf trial errors
+    counting as not improved; one that lowers it is accepted and lowers
+    lambda (ModifyLambda_GoodStep). Device ``torch.where``s only, so that
+    the host loop of a step (``_retry_and_accept``) and a chunk's try
+    slots (``_chunk``) share them. Returns ``retry`` (0-dim bool)."""
+    conv = upd_sq < cfg.update_squared_convergence_limit
+    # Numerical failure: no finite error even after lambda escalation, or
+    # a non-finite baseline: the map is probably corrupt.
+    failed = (~torch.isfinite(new_error) | ~torch.isfinite(current_error)
+              | ~torch.isfinite(upd_sq))
+    improved = new_error < current_error
+    accept = improved & ~failed
+    iters = c.iters + 1
+    retry = ~improved & ~conv & (iters < cfg.max_iterations)
+    lam, lam_factor = c.lam, c.lam_factor
+    lf2 = lam_factor * 2.0
+    c.set(lam=torch.where(retry, lam * lf2, torch.where(
+              accept, torch.clamp(lam * cfg.lambda_good_mult, min=1e-10),
+              lam)),
+          lam_factor=torch.where(retry, lf2, torch.where(
+              accept, cfg.lambda_factor_initial, lam_factor)),
+          cam_R=torch.where(accept, new_R, c.cam_R),
+          cam_t=torch.where(accept, new_t, c.cam_t),
+          pt_pos=torch.where(accept, new_pt, c.pt_pos),
+          converged=c.converged | conv, failed=c.failed | (failed & ~retry),
+          accepted=c.accepted + accept.to(torch.int32), iters=iters,
+          last_error=new_error)
+    return retry
+
+
 def _retry_and_accept(state: LMState, cfg: BundleConfig, try_lambda,
                       current_error: Tensor, new_bad: Tensor):
-    """The lambda loop of a step and its outcome: ``try_lambda(lam)`` gives
-    (new_R, new_t, new_pt, upd_sq, new_error); a try that does not lower
-    the error raises lambda and retries, each try read on the host once.
-    Returns (the new LMState, its flags)."""
+    """The lambda loop of a step and its outcome (``_take_try``):
+    ``try_lambda(lam)`` gives (new_R, new_t, new_pt, upd_sq, new_error),
+    each try read on the host once. Returns (the new LMState, its
+    flags)."""
     prob = state.problem
-    lam, lam_factor = state.lam, state.lam_factor
-    n_inner = 0
+    c = _Carry(False, cam_R=prob.cam_R, cam_t=prob.cam_t, pt_pos=prob.pt_pos,
+               lam=state.lam, lam_factor=state.lam_factor,
+               converged=state.converged, accepted=state.accepted,
+               iters=state.iters, last_error=state.last_error,
+               failed=state.failed)
     while True:
-        n_inner += 1
-        new_R, new_t, new_pt, upd_sq, new_error = try_lambda(lam)
-        conv = upd_sq < cfg.update_squared_convergence_limit
-        # Numerical failure: no finite error even after lambda escalation,
-        # or a non-finite baseline: the map is probably corrupt.
-        failed = (~torch.isfinite(new_error) | ~torch.isfinite(current_error)
-                  | ~torch.isfinite(upd_sq))
-        accept = (new_error < current_error) & ~failed
-        # A bad step raises lambda (ModifyLambda_BadStep) and retries; NaN
-        # or inf trial errors count as not improved.
-        retry = (~(new_error < current_error) & ~conv
-                 & (state.iters + n_inner < cfg.max_iterations))
-        converged = state.converged | conv
-        iters = state.iters + n_inner
-        failed_all = state.failed | failed
-        accepted = state.accepted + accept.to(torch.int32)
+        retry = _take_try(c, cfg, current_error, *try_lambda(c.lam))
         # The try's one host read: whether to retry, and the flags.
-        read = torch.stack([retry.to(torch.int32), converged.to(torch.int32),
-                            iters, failed_all.to(torch.int32),
-                            accepted]).tolist()
+        read = torch.stack([retry.to(torch.int32), c.converged.to(torch.int32),
+                            c.iters, c.failed.to(torch.int32),
+                            c.accepted]).tolist()
         if not read[0]:
             break
-        lam_factor = lam_factor * 2.0
-        lam = lam * lam_factor
-
-    # Good step: lambda *= 0.3, factor reset (ModifyLambda_GoodStep).
-    lam = torch.where(accept, torch.clamp(lam * cfg.lambda_good_mult,
-                                          min=1e-10), lam)
-    lam_factor = torch.where(accept, cfg.lambda_factor_initial, lam_factor)
-
-    new_prob = dataclasses.replace(
-        prob, cam_R=torch.where(accept, new_R, prob.cam_R),
-        cam_t=torch.where(accept, new_t, prob.cam_t),
-        pt_pos=torch.where(accept, new_pt, prob.pt_pos),
-        meas_bad=prob.meas_bad | new_bad)
-    return LMState(problem=new_prob, layout=state.layout, lam=lam,
-                   lam_factor=lam_factor, converged=converged,
-                   accepted=accepted, iters=iters, last_error=new_error,
-                   failed=failed_all), tuple(read[1:])
+    new_prob = dataclasses.replace(prob, cam_R=c.cam_R, cam_t=c.cam_t,
+                                   pt_pos=c.pt_pos,
+                                   meas_bad=prob.meas_bad | new_bad)
+    return LMState(problem=new_prob, layout=state.layout, lam=c.lam,
+                   lam_factor=c.lam_factor, converged=c.converged,
+                   accepted=c.accepted, iters=c.iters,
+                   last_error=c.last_error, failed=c.failed), tuple(read[1:])
 
 
 #: ``flags`` of ``init_lm``'s state.
@@ -493,17 +581,198 @@ def flags(state: LMState):
                               state.accepted]).tolist())
 
 
+class _Carry:
+    """Values a chunk carries from one try slot to the next. Eagerly ``set``
+    rebinds a name; on the device (a capture, its warm-up or an emulated
+    replay) it writes into the tensor the name first held (a copy of the first
+    value set), so a replay that skips the write keeps the last one."""
+
+    def __init__(self, in_place: bool, **values):
+        self._in_place = in_place
+        self.__dict__.update(values)
+
+    def set(self, **values):
+        for name, value in values.items():
+            held = self.__dict__.get(name)
+            if not self._in_place:
+                self.__dict__[name] = value
+            elif held is None:
+                self.__dict__[name] = value.clone()
+            else:
+                held.copy_(value)
+
+
+_PARTS = tuple(f.name for f in dataclasses.fields(StepParts))
+
+
+def _chunk(state: LMState, cam: atan.Camera, cfg: BundleConfig,
+           mest_kind: int, iter_limit, f):
+    """``lm_chunk`` as try slots (the module's docstring). With ``f`` (the
+    state's host flags) it runs eagerly and returns (new state, flags);
+    with ``f`` None it runs on the card's predicates (a capture, its
+    warm-up or an emulated replay; ``iter_limit`` an int32 0-dim tensor),
+    writes the state's tensors in place and returns the (4,) int32
+    flags."""
+    prob, lay = state.problem, state.layout
+    _check_float32_products(prob.pt_pos)
+    on_device = f is None
+    c = _Carry(on_device, cam_R=prob.cam_R, cam_t=prob.cam_t,
+               pt_pos=prob.pt_pos, meas_bad=prob.meas_bad, lam=state.lam,
+               lam_factor=state.lam_factor, converged=state.converged,
+               accepted=state.accepted, iters=state.iters,
+               last_error=state.last_error, failed=state.failed)
+    camsys = _camera_system(prob)
+    if on_device:
+        run = (~state.converged & ~state.failed & (state.iters < iter_limit))
+        start = torch.ones((), dtype=torch.bool, device=run.device)
+        # A warm-up reaches every body in one slot.
+        slots = range(1 if graphs.warming() else cfg.max_iterations)
+    else:
+        conv, iters, failed, _ = f
+        run, start = not (conv or failed or iters >= iter_limit), True
+        slots = itertools.count()
+    for _ in slots:
+        with graphs.if_block(run) as go:
+            if go:
+                with graphs.if_block(start) as go_start:
+                    if go_start:
+                        base = dataclasses.replace(
+                            prob, cam_R=c.cam_R, cam_t=c.cam_t,
+                            pt_pos=c.pt_pos, meas_bad=c.meas_bad)
+                        parts = _step_parts(base, lay, cam, cfg, mest_kind)
+                        c.set(meas_bad=c.meas_bad | parts.new_bad,
+                              **{n: getattr(parts, n) for n in _PARTS})
+                parts = StepParts(*(getattr(c, n) for n in _PARTS))
+                Vi, L, info, rhs = _factor_try(parts, camsys, c.lam)
+                c.set(Vi=Vi, L=L, info=info, rhs=rhs)
+        # The solve outside the bodies: a slot that does not run solves
+        # the last factor again, for nothing.
+        if on_device or run:
+            c.set(delta_cam=_solve_factored(c.L, c.info, c.rhs, camsys))
+        with graphs.if_block(run) as go:
+            if go:
+                parts = StepParts(*(getattr(c, n) for n in _PARTS))
+                base = dataclasses.replace(prob, cam_R=c.cam_R,
+                                           cam_t=c.cam_t, pt_pos=c.pt_pos)
+                retry = _take_try(c, cfg, parts.current_error, *_finish_try(
+                    base, parts, c.Vi, c.delta_cam, cam, mest_kind))
+                more = retry | (~c.converged & ~c.failed
+                                & (c.iters < iter_limit))
+                if on_device:
+                    run.copy_(more)
+                    start.copy_(~retry)
+                else:
+                    # The try's one host read.
+                    read = torch.stack([
+                        more.to(torch.int32), retry.to(torch.int32),
+                        c.converged.to(torch.int32), c.iters,
+                        c.failed.to(torch.int32), c.accepted]).tolist()
+                    run, start, f = bool(read[0]), not read[1], \
+                        tuple(read[2:])
+        if not (on_device or run):
+            break
+    if on_device:
+        return torch.stack([c.converged.to(torch.int32), c.iters,
+                            c.failed.to(torch.int32), c.accepted])
+    new_prob = dataclasses.replace(prob, cam_R=c.cam_R, cam_t=c.cam_t,
+                                   pt_pos=c.pt_pos, meas_bad=c.meas_bad)
+    return LMState(problem=new_prob, layout=lay, lam=c.lam,
+                   lam_factor=c.lam_factor, converged=c.converged,
+                   accepted=c.accepted, iters=c.iters,
+                   last_error=c.last_error, failed=c.failed), f
+
+
 def lm_chunk(state: LMState, cam: atan.Camera, cfg: BundleConfig,
              mest_kind: int, iter_limit: int, f):
     """Steps until converged, failed or ``iter_limit`` inner iterations
-    (JAX's device loop of steps). ``f`` is the ``flags`` of ``state``,
-    which the caller holds (``INIT_FLAGS``, or the last chunk's). Returns
-    (state, flags); the host reads only in the lambda tries."""
-    while True:
+    (JAX's device loop of steps), as try slots run eagerly: one host
+    read a try. ``f`` is the ``flags`` of ``state``, which the
+    caller holds (``INIT_FLAGS``, or the last chunk's). Returns (state,
+    flags)."""
+    conv, iters, failed, _ = f
+    if conv or failed or iters >= iter_limit:
+        return state, f
+    return _chunk(state, cam, cfg, mest_kind, iter_limit, f)
+
+
+def _fields(obj) -> tuple:
+    """A dataclass's field values, not copied (``dataclasses.astuple``
+    deep-copies them)."""
+    return tuple(getattr(obj, f.name) for f in dataclasses.fields(obj))
+
+
+def _state_tensors(state: LMState) -> tuple:
+    return (_fields(state.problem)
+            + (state.layout.cam, state.layout.pt, state.layout.pt_rank,
+               state.layout.pair_rank, state.lam, state.lam_factor,
+               state.converged, state.accepted, state.iters,
+               state.last_error, state.failed))
+
+
+class ChunkProgram(graphs.Program):
+    """``lm_chunk`` as one CUDA graph (JAX's ``_cached_lm_chunk``) at one
+    problem shape (cameras, points, measurements), ``MeasLayout`` (n_pt,
+    n_pair), config and estimator (``key_of``): ``cfg.max_iterations``
+    try slots under IF nodes, the iteration limit a static input, the
+    state's static buffers written in place, and one host read of the
+    flags a chunk. On the CPU, or with ``graphs=False``, ``lm_chunk`` runs
+    on the buffers and its result is copied into them. A call returns the
+    buffers: the next call overwrites them."""
+
+    def __init__(self, state: LMState, cam: atan.Camera, cfg: BundleConfig,
+                 mest_kind: int, graphs: bool = True,
+                 debug_path: str | None = None, pool=None):
+        super().__init__(state.problem.pt_pos.device, graphs, debug_path,
+                         pool)
+        self.key = self.key_of(state, cfg, mest_kind)
+        self.cam, self.cfg, self.kind = cam, cfg, mest_kind
+        lay = state.layout
+        self.state = LMState(
+            problem=BundleProblem(*(t.clone()
+                                    for t in _fields(state.problem))),
+            layout=MeasLayout(lay.cam.clone(), lay.pt.clone(),
+                              lay.pt_rank.clone(), lay.pair_rank.clone(),
+                              lay.n_pt, lay.n_pair),
+            **{k: getattr(state, k).clone() for k in (
+                "lam", "lam_factor", "converged", "accepted", "iters",
+                "last_error", "failed")})
+        self.limit = torch.zeros((), dtype=torch.int32, device=self.device)
+
+    @staticmethod
+    def key_of(state: LMState, cfg: BundleConfig, mest_kind: int):
+        p = state.problem
+        return (p.cam_R.shape[0], p.pt_pos.shape[0], p.meas_cam.shape[0],
+                state.layout.n_pt, state.layout.n_pair, cfg, mest_kind)
+
+    def _inputs(self):
+        return (self.state, self.limit)
+
+    def _fn(self, state, limit):
+        return _chunk(state, self.cam, self.cfg, self.kind, limit, None)
+
+    def __call__(self, state: LMState, iter_limit: int, f):
+        """``lm_chunk(state, ..., iter_limit, f)``; ``state`` may be this
+        program's buffers (the last call's result), which are then not
+        copied."""
         conv, iters, failed, _ = f
         if conv or failed or iters >= iter_limit:
             return state, f
-        state, f = lm_step_flags(state, cam, cfg, mest_kind)
+        if iter_limit > self.cfg.max_iterations:
+            raise ValueError(f"iter_limit {iter_limit} past max_iterations "
+                             f"{self.cfg.max_iterations}: more tries than "
+                             "the graph's slots")
+        bufs = _state_tensors(self.state)
+        for buf, x in zip(bufs, _state_tensors(state)):
+            graphs.fill(buf, x)
+        if not self.graphs:
+            out, f = lm_chunk(self.state, self.cam, self.cfg, self.kind,
+                              iter_limit, f)
+            for buf, x in zip(bufs, _state_tensors(out)):
+                graphs.fill(buf, x)
+            return self.state, f
+        self.limit.fill_(iter_limit)
+        flags_t = self.run()
+        return self.state, tuple(flags_t.tolist())
 
 
 def compute(problem: BundleProblem, cam: atan.Camera,

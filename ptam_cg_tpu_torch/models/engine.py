@@ -26,19 +26,26 @@ long BA run between chunks as the reference's abort flag does.
 ``async_mapping=True`` runs the mapping passes on a worker thread, the
 reference's second thread (include/MapMaker.h:37-38), as the JAX engine
 restores it (engine.py:227-268): tracking goes on against the last
-published map while a pass runs. The port writes a map in place
-(``map_state.insert_keyframe``), so each pass starts from
-``map_state.copy_map`` of the published map, adds the tracker's pending
-inlier/outlier deltas to the copy, runs ``MapMaker.step`` on it and
-publishes it; no pass writes a map that tracking may read. Unlike the
+published map while a pass runs. The MapMaker's jobs write its own map
+in place (``MapMaker``'s programs), so each pass adds the tracker's
+pending inlier/outlier deltas to that map (first loaded with the
+published map when that came from elsewhere: init's), runs
+``MapMaker.step`` on it and publishes a copy (``map_state.copy_map``);
+no pass writes a map that tracking may read. Unlike the
 JAX engine's worker, which runs only when a frame wakes it, the port's
 also runs a pass every 50 ms while a keyframe waits or integrates, as
 the reference's mapping thread works on between frames: a run whose
 frames stop still integrates its last keyframes. On the card
-the worker issues its work on its own CUDA stream. Each hand-off between
-the threads (the deltas, a queued keyframe, the map that init made, a
-published map) makes the consuming stream wait on an event recorded
-after the producer's work, and ``record_stream`` keeps the caching
+the worker issues its work on its own CUDA stream. Init captures the
+MapMaker's programs of fixed shapes (``MapMaker.capture_jobs``); when the
+worker captures one of the others (the first time a job runs at a BA
+tier or layout, or the first insert) the next frame waits for the
+capture to end (``graphs.wait_for_capture``):
+a capture beside a tracking thread took 8-10x its time alone on the
+H100's host (chip_smoke.py phase 12), and mapping fell behind. Each
+hand-off between the threads (the deltas, a queued keyframe, the map
+that init made, a published map) makes the consuming stream wait on an event
+recorded after the producer's work, and ``record_stream`` keeps the caching
 allocator from reusing a tensor's memory while the other stream may
 still read it. Unlike the JAX engine, a reset discards the publication
 of a pass in flight and the pending deltas (a generation counter), and
@@ -51,7 +58,9 @@ tracked frame is one replay of ``TrackProgram`` (its frontend build,
 track, the map's new counts and the info vector), a frame build
 (``_build``: the trail frames' and a keyframe's) one of ``BuildProgram``,
 a relocalization one of ``RelocProgram``. On the CPU, and on the card
-with ``graphs=False``, they run eagerly through the same buffers. Outside
+with ``graphs=False``, they run eagerly through the same buffers. The
+MapMaker's jobs are programs too (``MapMaker(graphs=)``, which the
+engine's flag sets). Outside
 the tracking replay a tracked frame copies its frame and the 14
 ``TrackView`` tables in, draws its uniforms into the program's buffers,
 reads the info vector once and copies the map's new inlier and outlier
@@ -87,6 +96,7 @@ import torch
 
 from ptam_cg_tpu_torch.camera import atan
 from ptam_cg_tpu_torch.config import EngineConfig
+from ptam_cg_tpu_torch.models import graphs
 from ptam_cg_tpu_torch.models import initializer as initlib
 from ptam_cg_tpu_torch.models import keyframe as kflib
 from ptam_cg_tpu_torch.models import map_state as ms
@@ -184,8 +194,8 @@ class SLAMEngine:
     done, before the interpreter exits. ``mesh``, ``mesh_axis``: the
     point-sharded global BA's ranks (``MapMaker``); a mesh of more than
     one rank and ``async_mapping`` exclude each other. ``graphs``: False
-    runs the programs eagerly on the card too (to compare them with
-    their replays); the CPU always runs them eagerly.
+    runs the programs, the MapMaker's too, eagerly on the card (to
+    compare them with their replays); the CPU always runs them eagerly.
     """
 
     def __init__(self, cfg: EngineConfig = EngineConfig(), image_size=None,
@@ -253,7 +263,7 @@ class SLAMEngine:
             self.map, self.cam, self.image_size, self.cfg.mapmaker,
             self.cfg.bundle, seed=self._seed,
             deterministic=self._deterministic, mesh=self.mesh,
-            mesh_axis=self.mesh_axis)
+            mesh_axis=self.mesh_axis, graphs=self.graphs)
         self.stage = Stage.NOT_STARTED
         self.tracker_state = trklib.init_tracker_state(device=self.device)
         self.trails = None
@@ -274,6 +284,9 @@ class SLAMEngine:
         #: stream, and the last one the tracking stream waited on.
         self._map_event = None
         self._adopted_event = None
+        #: The last map the worker published: the MapMaker's own map
+        #: holds the same, so the next pass goes on from it.
+        self._published = None
 
     def request_init(self):
         """The reference's spacebar (src/Tracker.cc:311-347)."""
@@ -326,12 +339,14 @@ class SLAMEngine:
             gen, mm, newest = self._generation, self.mapmaker, self.newest_kf
             published, deltas = self.map, self._pending_deltas
             self._pending_deltas = []
-        m = ms.copy_map(published)
+        if published is not self._published:
+            mm.map = ms.copy_map(published)
+        m = mm.map
         for inl, outl in deltas:
             m.point_inlier += inl
             m.point_outlier += outl
-        mm.map = m
         slot = mm.step(newest)
+        publish = ms.copy_map(mm.map)
         event = None
         if self._map_stream is not None:
             event = torch.cuda.Event()
@@ -339,7 +354,8 @@ class SLAMEngine:
         with self._map_lock:
             if gen != self._generation:
                 return
-            self.map, self._map_event = mm.map, event
+            self.map, self._map_event = publish, event
+            self._published = publish
             if slot is not None:
                 self.newest_kf = slot
 
@@ -356,10 +372,18 @@ class SLAMEngine:
             t.record_stream(self._map_stream)
 
     def snapshot(self) -> ms.MapState:
-        """The map tracking reads now: with a worker, the last published
-        one, which the current stream waits for (and keeps alive for)
-        once. Read the map through it, not through ``map``, from the
-        tracking thread (a checkpoint, a render)."""
+        """A map that no later mapping job writes: with a worker, the last
+        published one, which the current stream waits for (and keeps
+        alive for) once; without, a copy of the map (the MapMaker's jobs
+        write theirs in place). Read the map through it, not through
+        ``map``, from the tracking thread (a checkpoint, a render)."""
+        if not self.async_mapping:
+            return ms.copy_map(self.map)
+        return self._tracking_map()
+
+    def _tracking_map(self) -> ms.MapState:
+        """The map tracking reads now: the MapMaker's without a worker,
+        else ``snapshot``'s."""
         if not self.async_mapping:
             return self.map
         with self._map_lock:
@@ -444,6 +468,7 @@ class SLAMEngine:
             self._raise_worker_error()
             if self._closed:
                 raise RuntimeError("process_frame: the engine is closed")
+            graphs.wait_for_capture()
         if not isinstance(im, Tensor):
             im = torch.from_numpy(np.ascontiguousarray(im))
         cfg = self.cfg
@@ -529,9 +554,15 @@ class SLAMEngine:
         self._n_points_host = int(torch.sum(
             self.map.point_valid.to(torch.int32)))
         self.mapmaker._n_points_hint = self._n_points_host
+        # The mapping jobs of fixed shapes are captured here, on the init
+        # frame, and not on the frames that first run them.
+        self.mapmaker.capture_jobs()
         if self.async_mapping:
+            # Tracking reads a copy; the MapMaker's own map goes on.
             mm = self.mapmaker
-            self._hand_over((self.map, mm.failure_mask, mm.new_point_mask))
+            self.map = self._published = ms.copy_map(mm.map)
+            self._hand_over((self.map, mm.map, mm.failure_mask,
+                             mm.new_point_mask))
             with self._map_lock:
                 self._mapping_on = True
 
@@ -541,7 +572,7 @@ class SLAMEngine:
         pass. Returns (relocalized, added_kf)."""
         cfg = self.cfg
         mm = self.mapmaker
-        m = self.snapshot()
+        m = self._tracking_map()
         st = self.tracker_state
         p = self._pending
         relocalized = added_kf = False

@@ -30,12 +30,18 @@ reference's outlier rules (``apply_bundle``). Every fixed-size selection
 (``jnp.nonzero(size=...)``, ``lax.top_k``) is a cumulative-sum compaction
 or a stable sort here, so no host read decides a shape and ties break as
 in JAX: lower index first.
+
+The ``MapMaker`` runs each job as a program of static buffers
+(``MapPrograms``, the JAX MapMaker's jitted jobs): one CUDA graph replay
+on the card, the same function eagerly otherwise (``models/graphs.py``).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
+import os
 import time
 import warnings
 
@@ -47,6 +53,7 @@ from ptam_cg_tpu_torch.camera import atan
 from ptam_cg_tpu_torch.config import (MAX_MEAS_PER_KF, BundleConfig,
                                       MapMakerConfig)
 from ptam_cg_tpu_torch.models import bundle as bundlelib
+from ptam_cg_tpu_torch.models import graphs
 from ptam_cg_tpu_torch.models import map_state as ms
 from ptam_cg_tpu_torch.models.keyframe import FrameFeatures
 from ptam_cg_tpu_torch.models.map_state import MapState
@@ -57,6 +64,7 @@ from ptam_cg_tpu_torch.parallel import sharded_ba
 from ptam_cg_tpu_torch.utils import geometry
 from ptam_cg_tpu_torch.utils import mest
 from ptam_cg_tpu_torch.utils import se3 as se3lib
+from ptam_cg_tpu_torch.utils import tree
 from ptam_cg_tpu_torch.utils.se3 import SE3
 
 Tensor = torch.Tensor
@@ -120,6 +128,7 @@ def add_points_epipolar(m: MapState, src_kf, tgt_kf, level: int,
     non-max corners by ZMSSD, refine to sub-pixel, triangulate, and add
     the accepted candidates as map points with measurements in both
     keyframes. Returns (new map, n_added, new-point mask (P,))."""
+    graphs.note_call("add_points_epipolar")
     W, H = image_size
     P = m.point_pos.shape[0]
     dev = m.point_pos.device
@@ -306,6 +315,7 @@ def refind_in_kf(m: MapState, k, point_mask: Tensor, cam: atan.Camera,
     ``range_l0`` level-0 px (16x16 windows, 9x9 corner masks), sub-pixel
     refine above level 0. Failures are never retried in ``k``.
     Returns (map, n_found)."""
+    graphs.note_call("refind_in_kf")
     W, H = image_size
     P = m.point_pos.shape[0]
     dev = m.point_pos.device
@@ -374,29 +384,66 @@ def refind_in_kf(m: MapState, k, point_mask: Tensor, cam: atan.Camera,
 def refind_all_kfs(m: MapState, mask2d: Tensor, cam: atan.Camera, image_size,
                    ks: range | None = None):
     """``refind_in_kf`` of every keyframe in ``ks`` (a range of slots, all
-    K by default) that has work: a valid keyframe with a point selected by
-    its row of the (K, P) ``mask2d`` that is valid, not measured there and
-    not marked never-retry there (ReFindNewlyMade with a broadcast row,
-    ReFindFromFailureQueue with the failure mask). Re-finding keyframe k
-    writes only row k, so the span's ``has_work`` is read on the host once,
-    and equals the JAX scan's per-step ``lax.cond``; a slot scanned again
-    has no work left (each point it tried is now measured or never-retry).
-    Returns (map, found count over the span as a 0-dim int32 tensor)."""
+    K by default) that has work (``refind_span``). Returns (map, found
+    count over the span as a 0-dim int32 tensor)."""
     if ks is None:
         ks = range(m.kf_valid.shape[0])
-    sl = slice(ks.start, ks.stop)
-    has_work = (m.kf_valid[sl] & torch.any(
-        mask2d[sl] & m.point_valid & ~m.meas_valid[sl] & ~m.never_retry[sl],
-        dim=-1)).tolist()
+    k0 = torch.full((), ks.start, dtype=torch.int64,
+                    device=m.point_pos.device)
+    return refind_span(m, mask2d, k0, len(ks), cam, image_size)
+
+
+def _store(bufs: MapState, new: MapState) -> MapState:
+    """Write ``new`` into the map ``bufs`` field by field (a field that is
+    its buffer already is not copied); returns ``bufs``."""
+    for f in dataclasses.fields(bufs):
+        buf, x = getattr(bufs, f.name), getattr(new, f.name)
+        if x is not buf:
+            buf.copy_(x)
+    return bufs
+
+
+def refind_span(m: MapState, mask2d: Tensor, k0: Tensor, width: int,
+                cam: atan.Camera, image_size):
+    """ReFindNewlyMade (a broadcast row of ``mask2d``) or
+    ReFindFromFailureQueue (the failure mask) over the ``width`` slots
+    from ``k0`` (a 0-dim int64 tensor): ``refind_in_kf`` of each slot with
+    work, a valid keyframe with a point selected by its row of the (K, P)
+    ``mask2d`` that is valid, not measured there and not marked
+    never-retry there. Re-finding keyframe k writes only row k, so the
+    span's ``has_work`` is computed once, and equals the JAX scan's
+    per-step ``lax.cond``; a slot scanned again has no work left (each
+    point it tried is now measured or never-retry). Eagerly ``has_work``
+    is read on the host once; on the path a program is captured on, the
+    slots are a ``graphs.loop`` (a WHILE node: JAX's scan) and each
+    slot's re-find a ``graphs.if_block`` on its ``has_work`` (an IF node:
+    the ``lax.cond``). Returns (map, found count as a 0-dim int32
+    tensor)."""
     dev = m.point_pos.device
-    # Slots as device scalars: a Python int would be copied to the card
-    # for every keyframe re-found.
-    slots = torch.arange(ks.start, ks.stop, device=dev)
+    slots = k0 + torch.arange(width, device=dev)
+    has_work = (m.kf_valid[slots] & torch.any(
+        mask2d[slots] & m.point_valid & ~m.meas_valid[slots]
+        & ~m.never_retry[slots], dim=-1))
     total = torch.zeros((), dtype=torch.int32, device=dev)
-    for k, slot, work in zip(ks, slots, has_work):
-        if work:
-            m, n = refind_in_kf(m, slot, mask2d[k], cam, image_size)
-            total = total + n
+    if not graphs.device_predicates():
+        for slot, work in zip(slots, has_work.tolist()):
+            if work:
+                m, n = refind_in_kf(m, slot, ms.kf_row(mask2d, slot), cam,
+                                    image_size)
+                total = total + n
+        return m, total
+    i = torch.zeros((), dtype=torch.int64, device=dev)
+    more = torch.ones((), dtype=torch.bool, device=dev)
+    for _ in graphs.loop(lambda: more):
+        with graphs.if_block(ms.kf_row(has_work, i)) as go:
+            if go:
+                slot = k0 + i
+                new, n = refind_in_kf(m, slot, ms.kf_row(mask2d, slot), cam,
+                                      image_size)
+                m = _store(m, new)
+                total.add_(n)
+        i.add_(1)
+        more.copy_(i < width)
     return m, total
 
 
@@ -505,11 +552,6 @@ def local_ba_masks(m: MapState, newest, n_neighbors: int = 4):
 
 #: The smallest BA point cap (``MapMaker._ba_caps``' first floor).
 _TIER_P_FLOOR = 1024
-
-
-def _pow2ceil(n: int) -> int:
-    """Smallest power of two >= n (n >= 1)."""
-    return 1 << (max(int(n), 1) - 1).bit_length()
 
 
 def _first_true(mask: Tensor, size: int, fill: int) -> Tensor:
@@ -750,6 +792,229 @@ def apply_global_transform(m: MapState, T: SE3) -> MapState:
 
 
 # ---------------------------------------------------------------------------
+# The MapMaker's programs (the JAX MapMaker's jitted jobs) as CUDA graphs
+# ---------------------------------------------------------------------------
+
+#: Chunk graphs a MapMaker keeps (one per problem shape and layout).
+MAX_CHUNK_GRAPHS = 8
+
+
+@dataclasses.dataclass
+class _Tier:
+    """A BA tier's static buffers: the extraction's outputs (the problem
+    and its index maps and counts) and the adjusted problem's tables that
+    the write-back reads."""
+    prob: bundlelib.BundleProblem
+    mk: Tensor
+    mp: Tensor
+    cam_idx: Tensor
+    pt_idx: Tensor
+    counts: Tensor
+    final: tuple        # (cam_R, cam_t, pt_pos, meas_bad) after LM
+
+
+class MapPrograms:
+    """The MapMaker's jobs as programs of static buffers (JAX's
+    ``pinned(fn)`` programs, mapmaker.py:845-941): the integration's
+    insert and its four epipolar levels, the span re-find (a graph per
+    span width), the epipolar job per level, local BA's masks, the
+    extraction and the write-back per BA tier, GC and the plane alignment;
+    and BA's LM chunks (``bundle.ChunkProgram``, a graph per problem shape
+    and layout, the last ``MAX_CHUNK_GRAPHS`` kept).
+
+    The map (``map``), the failure and new-point masks and every job's
+    other inputs are static buffers; each program writes its results into
+    them, so no map is copied in or out of a job. On the card with
+    ``graphs`` a program is captured at its first call (``graphs.Graph``,
+    the MapMaker's graphs sharing one memory pool: they run one at a time
+    in the order the scheduler calls them, and each one's results are read
+    or copied before the next runs) and replayed after; otherwise it runs
+    eagerly on the same buffers. ``captures``: (label, capture seconds) of
+    each capture. ``debug_dir``: where each graph's DOT dump goes."""
+
+    def __init__(self, m: MapState, cam: atan.Camera, image_size,
+                 cfg: MapMakerConfig, kind: int, graphs_on: bool,
+                 debug_dir: str | None = None):
+        dev = m.point_pos.device
+        self.device = dev
+        self.graphs = graphs.on_card(dev, graphs_on)
+        self.pool = (torch.cuda.graph_pool_handle()
+                     if self.graphs and dev.type == "cuda" else None)
+        self.cam, self.image_size = cam, image_size
+        self.cfg, self.kind = cfg, kind
+        self.debug_dir = debug_dir
+        K, P = m.meas_valid.shape
+
+        def z(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        b, i32, i64 = torch.bool, torch.int32, torch.int64
+        self.map = ms.copy_map(m)
+        self.failure, self.new_pts, self.refind = z((K, P), b), z(P, b), \
+            z((K, P), b)
+        self.slot, self.tot, self.packed = z((), i32), z((), i32), z(2, i32)
+        self.k0, self.src, self.newest = z((), i64), z((), i64), z((), i64)
+        self.adjust, self.fixed, self.pmask = z(K, b), z(K, b), z(P, b)
+        self.insert = None          # the insert's inputs, at the first one
+        self.u = None               # the plane aligner's uniforms
+        self.tiers = {}
+        self.jobs = {}
+        self.chunks = collections.OrderedDict()
+        self.captures = []
+
+    def _path(self, label: str):
+        if self.debug_dir is None:
+            return None
+        return os.path.join(self.debug_dir, f"{label}.dot")
+
+    def _get(self, label: str, fn, inputs: tuple) -> graphs.Job:
+        job = self.jobs.get(label)
+        if job is None:
+            job = self.jobs[label] = graphs.Job(
+                label, fn, inputs, self.device, self.graphs,
+                self._path(label), self.pool)
+        return job
+
+    def run(self, label: str, fn, inputs: tuple):
+        """The job ``label`` (``fn`` of the static ``inputs``): a replay,
+        captured at its first call, or an eager call."""
+        job = self._get(label, fn, inputs)
+        capture = job.will_capture()
+        out = job.run()
+        if capture:
+            self.captures.append((label, job.graph.capture_s))
+        return out
+
+    def capture(self, label: str, fn, inputs: tuple) -> None:
+        """Capture the job ``label`` now if it runs as a graph and is not
+        captured yet; the capture runs nothing on its buffers."""
+        job = self._get(label, fn, inputs)
+        if job.will_capture():
+            job.capture()
+            self.captures.append((label, job.graph.capture_s))
+
+    def chunk(self, state: bundlelib.LMState,
+              ba_cfg: BundleConfig) -> bundlelib.ChunkProgram:
+        """The chunk program of ``state``'s shape and layout under
+        ``ba_cfg`` (the console may replace the MapMaker's)."""
+        key = bundlelib.ChunkProgram.key_of(state, ba_cfg, self.kind)
+        prog = self.chunks.get(key)
+        if prog is None:
+            c, p, n_meas, n_pt, n_pair = key[:5]
+            label = f"lm_chunk_c{c}_p{p}_m{n_meas}_npt{n_pt}_npair{n_pair}"
+            prog = bundlelib.ChunkProgram(state, self.cam, ba_cfg,
+                                          self.kind, self.graphs,
+                                          self._path(label), self.pool)
+            prog.label = label
+            self.chunks[key] = prog
+            while len(self.chunks) > MAX_CHUNK_GRAPHS:
+                self.chunks.popitem(last=False)
+        self.chunks.move_to_end(key)
+        return prog
+
+    def chunk_call(self, prog, state, iter_limit: int, f):
+        capture = prog.will_capture()
+        out = prog(state, iter_limit, f)
+        if capture and prog.graph is not None:
+            self.captures.append((prog.label, prog.graph.capture_s))
+        return out
+
+    def tier(self, caps) -> _Tier:
+        """The BA tier ``caps``' buffers, made from an eager extraction of
+        the current buffers the first time."""
+        t = self.tiers.get(caps)
+        if t is None:
+            prob, mk, mp, cam_idx, pt_idx, counts = graphs.clone(
+                extract_bundle_compact(self.map, self.adjust, self.fixed,
+                                       self.pmask, *caps))
+            final = tuple(getattr(prob, f).clone() for f in (
+                "cam_R", "cam_t", "pt_pos", "meas_bad"))
+            t = self.tiers[caps] = _Tier(prob, mk, mp, cam_idx, pt_idx,
+                                         counts, final)
+        return t
+
+
+def _insert_fn(cam, image_size):
+    def fn(m, feat, R, t, point, pos, level, subpix, valid, dmean, dsigma,
+           slot, tot):
+        new, s = integrate_insert_program(m, feat, SE3(R, t), point, pos,
+                                          level, subpix, valid, dmean,
+                                          dsigma, cam, image_size)
+        _store(m, new)
+        slot.copy_(s)
+        tot.zero_()
+    return fn
+
+
+def _epi_fn(level: int, pack: bool, cam, image_size, wiggle, thin):
+    def fn(m, slot, npm, tot, packed):
+        new, npm2, tot2 = integrate_epi_program(m, slot, npm, tot, level,
+                                                cam, image_size, wiggle,
+                                                thin)
+        _store(m, new)
+        npm.copy_(npm2)
+        tot.copy_(tot2)
+        if pack:
+            packed.copy_(torch.stack([slot, tot2.to(torch.int32)]))
+    return fn
+
+
+def _refind_fn(width: int, cam, image_size):
+    def fn(m, mask2d, k0):
+        new, total = refind_span(m, mask2d, k0, width, cam, image_size)
+        _store(m, new)
+        return total
+    return fn
+
+
+def _epipolar_fn(level: int, cam, image_size, wiggle, thin):
+    def fn(m, src, npm):
+        new, n, npm2 = epipolar_job(m, src, npm, level, cam, image_size,
+                                    wiggle, thin)
+        _store(m, new)
+        npm.copy_(npm2)
+        return n
+    return fn
+
+
+def _local_masks_fn(m, newest, adjust, fixed, pts):
+    a, f, p = local_ba_masks(m, newest)
+    adjust.copy_(a)
+    fixed.copy_(f)
+    pts.copy_(p)
+
+
+def _extract_fn(caps):
+    def fn(m, adjust, fixed, pmask, tier):
+        out = extract_bundle_compact(m, adjust, fixed, pmask, *caps)
+        bufs = (tier.prob, tier.mk, tier.mp, tier.cam_idx, tier.pt_idx,
+                tier.counts)
+        for buf, x in zip(tree.tensors(bufs), tree.tensors(out)):
+            buf.copy_(x)
+    return fn
+
+
+def _apply_fn(m, failure, tier, adjust, pmask):
+    cam_R, cam_t, pt_pos, meas_bad = tier.final
+    prob = dataclasses.replace(tier.prob, cam_R=cam_R, cam_t=cam_t,
+                               pt_pos=pt_pos, meas_bad=meas_bad)
+    new, fail2 = apply_bundle_job(m, prob, tier.mk, tier.mp, adjust, pmask,
+                                  failure, tier.cam_idx, tier.pt_idx)
+    _store(m, new)
+    failure.copy_(fail2)
+
+
+def _gc_fn(cfg):
+    def fn(m):
+        _store(m, handle_bad_points(m, cfg))
+    return fn
+
+
+def _plane_fn(m, u):
+    _store(m, apply_global_transform(m, plane_aligner(m, u)))
+
+
+# ---------------------------------------------------------------------------
 # Host orchestrator
 # ---------------------------------------------------------------------------
 
@@ -766,7 +1031,7 @@ class _HostCopy:
             self._event = torch.cuda.Event()
             self._event.record()
         else:
-            self._host = t
+            self._host = t.clone()
 
     def ready(self) -> bool:
         return self._event is None or self._event.query()
@@ -816,6 +1081,15 @@ class MapMaker:
     on the host as it runs (``bundle.lm_chunk``), so it has ended when its
     dispatch returns, and a poll needs no readiness check.
 
+    ``graphs``: run the jobs as CUDA graphs on the card (``MapPrograms``,
+    the JAX MapMaker's jitted programs): each job is one replay, a BA chunk
+    one replay and one host read. False runs them eagerly on the same
+    buffers (to compare); the CPU always does. The map, once a job has
+    run, is the programs' buffers, which the next job writes in place:
+    ``map`` is then a map the MapMaker owns, and a caller that keeps a map
+    past the next job copies it (``map_state.copy_map``).
+    ``graph_debug_dir``: a directory for each graph's DOT dump.
+
     ``seed`` seeds ``generator``, a ``torch.Generator`` on the map's
     device, which draws the plane aligner's uniforms when the caller gives
     none (the JAX MapMaker splits a PRNG key made from the same seed), and
@@ -827,8 +1101,12 @@ class MapMaker:
                  ba_cfg: BundleConfig = BundleConfig(),
                  max_ba_meas: int | None = None, seed: int = 0,
                  deterministic: bool | None = None, mesh=None,
-                 mesh_axis: str = "mp"):
+                 mesh_axis: str = "mp", graphs: bool = True,
+                 graph_debug_dir: str | None = None):
         self.map = m
+        self.graphs = graphs
+        self.graph_debug_dir = graph_debug_dir
+        self._progs = None
         self.cam = cam
         self.image_size = image_size
         self.cfg = cfg
@@ -842,7 +1120,7 @@ class MapMaker:
         self._use_sharded = mesh is not None and mesh.shape[mesh_axis] > 1
         if self._use_sharded:
             D = mesh.shape[mesh_axis]
-            smallest = min(_TIER_P_FLOOR, _pow2ceil(P))
+            smallest = min(_TIER_P_FLOOR, bundlelib.pow2ceil(P))
             if P % D or smallest % D:
                 raise ValueError(
                     f"point capacity {P} (BA point caps down to {smallest})"
@@ -923,6 +1201,41 @@ class MapMaker:
             self._last_dispatch = torch.cuda.Event()
             self._last_dispatch.record()
 
+    @property
+    def programs(self) -> MapPrograms:
+        """The jobs' programs and buffers, made at the first job (again if
+        the config, the camera or the image size was replaced)."""
+        key = (id(self.cfg), id(self.cam), tuple(self.image_size))
+        if self._progs is None or self._progs_key != key:
+            self._progs = MapPrograms(self.map, self.cam, self.image_size,
+                                      self.cfg, self._kind, self.graphs,
+                                      self.graph_debug_dir)
+            self._progs_key = key
+        return self._progs
+
+    def _load(self) -> MapPrograms:
+        """The programs, their buffers holding ``map`` and the masks (a
+        copy only of what is not the buffers already)."""
+        p = self.programs
+        graphs.fill_tree(p.map, self.map)
+        graphs.fill(p.failure, self.failure_mask)
+        graphs.fill(p.new_pts, self.new_point_mask)
+        return p
+
+    def _unload(self) -> None:
+        """After a job: the map and masks are the programs' buffers."""
+        p = self._progs
+        self.map, self.failure_mask, self.new_point_mask = \
+            p.map, p.failure, p.new_pts
+
+    def _job(self, label: str, fn, inputs: tuple, writes: bool = True):
+        """Run a job of the loaded programs; one that ``writes`` the map
+        leaves ``map`` and the masks the buffers it wrote."""
+        out = self._progs.run(label, fn, inputs)
+        if writes:
+            self._unload()
+        return out
+
     def queue_size(self) -> int:
         return len(self.kf_queue)
 
@@ -951,12 +1264,13 @@ class MapMaker:
         to the map's capacity and ``max_ba_meas``."""
         K, P = self.map.meas_valid.shape
         n_c = max(self._n_kfs_host + len(self.kf_queue), self._tier_c_floor)
-        c_cap = min(_pow2ceil(n_c), _pow2ceil(K))
+        c_cap = min(bundlelib.pow2ceil(n_c), bundlelib.pow2ceil(K))
         n_p = max(int(self._n_points_hint * 1.5) + 64, self._tier_p_floor)
-        p_cap = min(_pow2ceil(n_p), _pow2ceil(P))
+        p_cap = min(bundlelib.pow2ceil(n_p), bundlelib.pow2ceil(P))
         n_m = max(int(self._last_n_sel * 1.5), c_cap * 256,
                   self._tier_m_floor)
-        m_cap = min(_pow2ceil(n_m), _pow2ceil(self.max_ba_meas))
+        m_cap = min(bundlelib.pow2ceil(n_m),
+                    bundlelib.pow2ceil(self.max_ba_meas))
         return c_cap, p_cap, m_cap
 
     def _ba_start(self, adjust_kf, fixed_kf, point_mask, recent: bool,
@@ -964,13 +1278,17 @@ class MapMaker:
         """Extract the problem; the first LM chunk goes out at the next
         ``_ba_poll``."""
         caps = self._ba_caps()
-        prob, mk, mp, cam_idx, pt_idx, counts = extract_bundle_compact(
-            self.map, adjust_kf, fixed_kf, point_mask, *caps)
-        self._ba_job = dict(prob=prob, mk=mk, mp=mp, cam_idx=cam_idx,
-                            pt_idx=pt_idx, adjust=adjust_kf, pmask=point_mask,
-                            recent=recent, full=full, counts=counts,
-                            caps=caps, state=None, iters_done=0,
-                            sharded=sharded)
+        p = self._load()
+        graphs.fill(p.adjust, adjust_kf)
+        graphs.fill(p.fixed, fixed_kf)
+        graphs.fill(p.pmask, point_mask)
+        tier = p.tier(caps)
+        self._job("extract_c{}_p{}_m{}".format(*caps), _extract_fn(caps),
+                  (p.map, p.adjust, p.fixed, p.pmask, tier), writes=False)
+        self._ba_job = dict(tier=tier, prob=tier.prob, adjust=p.adjust,
+                            pmask=p.pmask, recent=recent, full=full,
+                            counts=tier.counts, caps=caps, state=None,
+                            iters_done=0, sharded=sharded)
         self._note_dispatch()
 
     def _ba_init_state(self):
@@ -1016,6 +1334,13 @@ class MapMaker:
         if job["sharded"]:
             job["state"], job["flags"] = sharded_ba.sharded_lm_chunk(
                 job["state"], self.mesh, self.cam, self.ba_cfg, self._kind,
+                self._chunk_target(job), job["flags"])
+        elif self.programs.graphs:
+            # The program of the config in force now: the console may
+            # replace it between chunks.
+            progs = self.programs
+            job["state"], job["flags"] = progs.chunk_call(
+                progs.chunk(job["state"], self.ba_cfg), job["state"],
                 self._chunk_target(job), job["flags"])
         else:
             job["state"], job["flags"] = bundlelib.lm_chunk(
@@ -1083,10 +1408,12 @@ class MapMaker:
             # outlier flags as the one-rank path does.
             prob = sharded_ba.unshard_measurements(
                 job["orig_prob"], prob, job["perm"], self.mesh)
-        self.map, self.failure_mask = apply_bundle_job(
-            self.map, prob, job["mk"], job["mp"],
-            job["adjust"], job["pmask"], self.failure_mask, job["cam_idx"],
-            job["pt_idx"])
+        p, tier = self._load(), job["tier"]
+        for buf, x in zip(tier.final, (prob.cam_R, prob.cam_t, prob.pt_pos,
+                                       prob.meas_bad)):
+            graphs.fill(buf, x)
+        self._job("apply_c{}_p{}_m{}".format(*job["caps"]), _apply_fn,
+                  (p.map, p.failure, tier, job["adjust"], job["pmask"]))
         self._note_dispatch()
         self._failures_pending = True
         self._map_dirty = True
@@ -1120,21 +1447,29 @@ class MapMaker:
         if self.n_kfs() < 8:
             self.converged_recent = True
             return
-        adjust, fixed, pts = local_ba_masks(self.map, newest)
+        p = self._load()
+        graphs.fill(p.newest, torch.as_tensor(newest))
+        self._job(*self._local_masks_job(), writes=False)
+        adjust, fixed, pts = p.adjust, p.fixed, p.pmask
         if start_only:
             self._ba_start(adjust, fixed, pts, True)
         else:
             self.bundle_adjust(adjust, fixed, pts, True)
 
+    def _local_masks_job(self):
+        p = self.programs
+        return ("local_masks", _local_masks_fn,
+                (p.map, p.newest, p.adjust, p.fixed, p.pmask))
+
     def add_some_map_points(self, src_kf: int, level: int) -> int:
         """One epipolar expansion of keyframe ``src_kf`` at ``level``
         against its closest keyframe (AddSomeMapPoints). Returns the number
         of points added (one host read, as in the JAX package)."""
-        self.map, n, self.new_point_mask = epipolar_job(
-            self.map, src_kf, self.new_point_mask, level, self.cam,
-            self.image_size, self.cfg.wiggle_scale,
-            self.cfg.thin_candidates_radius)
-        n = int(n)
+        p = self._load()
+        graphs.fill(p.src, torch.as_tensor(src_kf))
+        n = int(self._job(f"epipolar_l{level}", _epipolar_fn(
+            level, self.cam, self.image_size, self.cfg.wiggle_scale,
+            self.cfg.thin_candidates_radius), (p.map, p.src, p.new_pts)))
         if n > 0:
             self._new_points_pending = True
         return n
@@ -1148,16 +1483,23 @@ class MapMaker:
                             self.map.point_pos.shape[0]),
                            generator=self.generator,
                            device=self.map.point_pos.device)
-        self.map = apply_global_transform(self.map,
-                                          plane_aligner(self.map, u))
+        p = self._load()
+        if p.u is None:
+            p.u = torch.empty_like(u)
+        graphs.fill(p.u, u)
+        self._job("plane_align", _plane_fn, (p.map, p.u))
 
     def handle_bad_points(self):
         """Bad-point GC, run only after the map changed (``mark_dirty``)."""
         if not self._map_dirty:
             return
-        self.map = handle_bad_points(self.map, self.cfg)
+        self._load()
+        self._job(*self._gc_job())
         self._note_dispatch()
         self._map_dirty = False
+
+    def _gc_job(self):
+        return "gc", _gc_fn(self.cfg), (self.programs.map,)
 
     def mark_dirty(self):
         self._map_dirty = True
@@ -1168,17 +1510,26 @@ class MapMaker:
     # already measured (``refind_all_kfs``).
 
     def _start_refind_task(self, mask2d: Tensor):
-        self._refind_task = dict(mask2d=mask2d, i=0)
+        """The task's selection, copied into the programs' buffer."""
+        self.programs.refind.copy_(mask2d)
+        self._refind_task = dict(i=0)
 
     def _refind_advance(self):
         task = self._refind_task
-        self.map, _ = refind_all_kfs(self.map, task["mask2d"], self.cam,
-                                     self.image_size,
-                                     self._span_ks[task["i"]])
+        ks = self._span_ks[task["i"]]
+        p = self._load()
+        p.k0.fill_(ks.start)
+        self._job(*self._refind_job(len(ks)))
         self._note_dispatch()
         task["i"] += 1
         if task["i"] >= len(self._span_ks):
             self._refind_task = None
+
+    def _refind_job(self, width: int):
+        p = self.programs
+        return (f"refind_w{width}", _refind_fn(width, self.cam,
+                                               self.image_size),
+                (p.map, p.refind, p.k0))
 
     def refind_newly_made(self, spread: bool = False):
         """ReFindNewlyMade: re-find the expansion's new points in every
@@ -1225,14 +1576,19 @@ class MapMaker:
         if self._n_kfs_host >= self.map.kf_valid.shape[0]:
             return None     # keyframe capacity exhausted
         features, pose, meas, dmean, dsigma = self.kf_queue.pop(0)
-        self.map, slot = integrate_insert_program(
-            self.map, features, pose, meas["point"], meas["pos"],
-            meas["level"], meas["subpix"], meas["valid"], dmean, dsigma,
-            self.cam, self.image_size)
+        p = self._load()
+        dev = p.device
+        args = (features, pose.R, pose.t, meas["point"], meas["pos"],
+                meas["level"], meas["subpix"], meas["valid"],
+                torch.as_tensor(dmean, dtype=torch.float32, device=dev),
+                torch.as_tensor(dsigma, dtype=torch.float32, device=dev))
+        if p.insert is None:
+            p.insert = graphs.clone(args)
+        graphs.fill_tree(p.insert, args)
+        self._job("insert", _insert_fn(self.cam, self.image_size),
+                  (p.map, *p.insert, p.slot, p.tot))
         self._n_kfs_host += 1
-        self._integrate_job = dict(
-            slot=slot, phase=0,
-            tot=torch.zeros((), dtype=torch.int32, device=slot.device))
+        self._integrate_job = dict(phase=0)
         self._note_dispatch()
         self.converged_recent = False
         self.converged_full = False
@@ -1243,17 +1599,42 @@ class MapMaker:
         starts its copy to the host."""
         job = self._integrate_job
         ph = job["phase"]
-        self.map, self.new_point_mask, job["tot"] = integrate_epi_program(
-            self.map, job["slot"], self.new_point_mask, job["tot"],
-            EPI_LEVEL_ORDER[ph], self.cam, self.image_size,
-            self.cfg.wiggle_scale, self.cfg.thin_candidates_radius)
-        if ph < len(EPI_LEVEL_ORDER) - 1:
+        last = ph == len(EPI_LEVEL_ORDER) - 1
+        p = self._load()
+        self._job(*self._epi_job(ph))
+        if not last:
             job["phase"] = ph + 1
         else:
-            self._pending_integrate = _HostCopy(torch.stack(
-                [job["slot"], job["tot"].to(torch.int32)]))
+            self._pending_integrate = _HostCopy(p.packed)
             self._integrate_job = None
         self._note_dispatch()
+
+    def _epi_job(self, ph: int):
+        """The integration's phase ``ph``: an epipolar level, the last of
+        which packs (slot, n_added)."""
+        p, lev = self.programs, EPI_LEVEL_ORDER[ph]
+        return (f"epi_l{lev}", _epi_fn(
+            lev, ph == len(EPI_LEVEL_ORDER) - 1, self.cam, self.image_size,
+            self.cfg.wiggle_scale, self.cfg.thin_candidates_radius),
+            (p.map, p.slot, p.new_pts, p.tot, p.packed))
+
+    def capture_jobs(self) -> None:
+        """Capture now the jobs whose shapes the map's capacity fixes, so
+        that no scheduler pass stalls on their capture: an integration's
+        four epipolar levels, the span re-finds, local BA's masks and GC.
+        (The insert is captured with its first keyframe, and BA's
+        extraction, write-back and chunks with their tier and layout.)
+        Each capture's warm-up runs on copies of the buffers: the map does
+        not change. Nothing to do unless the programs are graphs."""
+        p = self.programs
+        if not p.graphs:
+            return
+        for ph in range(len(EPI_LEVEL_ORDER)):
+            p.capture(*self._epi_job(ph))
+        for w in sorted({len(ks) for ks in self._span_ks}):
+            p.capture(*self._refind_job(w))
+        p.capture(*self._local_masks_job())
+        p.capture(*self._gc_job())
 
     def integrate_keyframe(self):
         """A whole integration with every phase now (the synchronous

@@ -9,17 +9,9 @@ engine's jitted programs, ``ptam_cg_tpu/models/engine.py``):
   (engine.py:139-141);
 - ``RelocProgram``: ``relocalizer.attempt_recovery`` (engine.py:222-224).
 
-A ``jax.jit`` program is one dispatch; its counterpart on the card is a
-CUDA graph. Each program owns static input buffers: a call copies its
-inputs into them (``copy_``; an input that already is its buffer is not
-copied) and runs the function on the buffers. On the card the function
-is captured once (``Graph``: a warm-up on a side stream, then the
-capture, in thread-local mode because the engine's mapping worker
-launches on another thread meanwhile) and every call replays it; on the
-CPU, or with ``graphs=False`` on the card, the same function runs
-eagerly on the same buffers and its outputs are copied into the first
-call's, so they are overwritten as a replay's are. A failed capture
-raises: nothing falls back to eager by itself.
+Each is a ``graphs.Program``: static input buffers, one CUDA graph
+replayed on the card, the same function run eagerly on the same buffers
+on the CPU or with ``graphs=False`` (``models/graphs.py``).
 
 A replay overwrites the graph's outputs, so a caller clones what it
 keeps past the next call of the same program. ``TrackProgram`` writes
@@ -28,25 +20,17 @@ buffers at the end of the program, as the next frame's inputs, and
 returns those buffers; ``BuildProgram`` and ``RelocProgram`` return
 clones.
 
-The kernels' launch counts (``kernels/_build.py``) count Python calls of
-their wrappers, and a replay makes none: a capture records the kernels
-it launched by wrapper module (``_build.tally``), and each replay adds
-them on the stream it replays on and adds one to ``replays`` under the
-name of the function it replays. ``capturing()`` tells a caller's
-counters that a call made now runs nothing: it is being captured.
+The kernels' launches and the calls a replay stands for are counted as
+``models/graphs.py`` sets out.
 """
 
 from __future__ import annotations
 
-import contextlib
-import threading
-import time
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
-from ptam_cg_tpu_torch.kernels import _build
+from ptam_cg_tpu_torch.models import graphs
 from ptam_cg_tpu_torch.models import keyframe as kflib
 from ptam_cg_tpu_torch.models import map_state as ms
 from ptam_cg_tpu_torch.models import mapmaker as mmlib
@@ -57,101 +41,8 @@ from ptam_cg_tpu_torch.utils import tree
 
 Tensor = torch.Tensor
 
-_LOCAL = threading.local()
-_REPLAY_LOCK = threading.Lock()
-#: Replays in this process, by the name of the function each replays.
-replays: dict = {}
-
-
-def capturing() -> bool:
-    """True while this thread captures a program."""
-    return getattr(_LOCAL, "capturing", False)
-
-
-@contextlib.contextmanager
-def _capturing():
-    _LOCAL.capturing = True
-    try:
-        yield
-    finally:
-        _LOCAL.capturing = False
-
-
-def _clone(obj):
-    return tree.map_tensors(obj, Tensor.clone)
-
-
-def fill(buf: Tensor, x) -> None:
-    """Copy ``x`` (a tensor or a numpy array) into ``buf``, unless it is
-    ``buf``. A host array goes to the card through pinned memory without
-    a host sync."""
-    if x is buf:
-        return
-    if not isinstance(x, Tensor):
-        x = torch.from_numpy(np.ascontiguousarray(x))
-    if x.device.type == "cpu" and buf.device.type == "cuda":
-        buf.copy_(x.pin_memory(), non_blocking=True)
-    else:
-        buf.copy_(x)
-
-
-class Graph:
-    """``fn(*inputs)`` captured as a CUDA graph of the static tensors
-    ``inputs``. A warm-up runs first on a side stream, on clones of the
-    inputs (the function may write its inputs); its kernels launch and
-    count as the caller's. Then the capture, with ``capture_error_mode=
-    "thread_local"`` (another thread may launch on its own stream
-    meanwhile), records the kernels the wrappers launch; ``replay`` runs
-    the graph on the current stream and returns the static outputs.
-
-    ``inputs``: the static inputs, to fill before a replay.
-    ``capture_s``: seconds of the capture and the instantiation on the
-    host clock, warm-up apart. ``launches``: {kernel wrapper module:
-    launches a replay}. ``debug_path``: a file to write the captured
-    graph to, as Graphviz DOT (``CUDAGraph.debug_dump``), for counting
-    its nodes."""
-
-    def __init__(self, fn, inputs, debug_path: str | None = None):
-        dev = next(tree.tensors(inputs)).device
-        self.device, self.inputs = dev, inputs
-        caller = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(caller)
-        with _build.tally() as warm, torch.cuda.stream(side):
-            fn(*_clone(inputs))
-        caller.wait_stream(side)
-        for mod, n in warm.items():
-            _build.count_launches(mod, caller.cuda_stream, n)
-        # A graph to dump is kept after its instantiation.
-        keep = debug_path is not None
-        self.graph = torch.cuda.CUDAGraph(keep_graph=keep)
-        t0 = time.perf_counter()
-        with _build.tally() as self.launches, _capturing(), \
-                torch.cuda.graph(self.graph,
-                                 capture_error_mode="thread_local"):
-            self.outputs = fn(*inputs)
-        if keep:
-            self.graph.instantiate()
-        self.capture_s = time.perf_counter() - t0
-        if keep:
-            self.graph.debug_dump(debug_path)
-
-    def replay(self, name: str | None = None):
-        """Run the graph; count its kernels on the current stream and,
-        with ``name``, one replay of that function."""
-        self.graph.replay()
-        stream = torch._C._cuda_getCurrentRawStream(self.device.index)
-        for mod, n in self.launches.items():
-            _build.count_launches(mod, stream, n)
-        if name is not None:
-            with _REPLAY_LOCK:
-                replays[name] = replays.get(name, 0) + 1
-        return self.outputs
-
-
-class Program:
-    """A function of static input buffers, replayed as a ``Graph`` on the
-    card (``graphs``) and run eagerly otherwise. ``name``: the function a
+class Program(graphs.Program):
+    """An engine program (``graphs.Program``). ``name``: the function a
     replay counts as a call of. The three programs take the same
     arguments: the engine's config, image size, camera (and its
     parameters), map capacity (points, keyframes) and frame dtype, each
@@ -163,45 +54,14 @@ class Program:
 
     def __init__(self, cfg, image_size, capacity, frame_dtype, device,
                  graphs: bool, debug_path: str | None):
+        super().__init__(device, graphs, debug_path)
         self.key = self.key_of(cfg, frame_dtype, capacity)
         self.cfg = cfg
         self.image_size = tuple(image_size)
-        self.device = torch.device(device)
-        self.graphs = graphs and self.device.type == "cuda"
-        self.debug_path = debug_path
-        self.graph = None
-        self._outputs = None
 
     @staticmethod
     def key_of(cfg, frame_dtype, capacity):
         raise NotImplementedError
-
-    def will_capture(self) -> bool:
-        """True if the next call captures."""
-        return self.graphs and self.graph is None
-
-    def _inputs(self):
-        raise NotImplementedError
-
-    def _fn(self, *inputs):
-        raise NotImplementedError
-
-    def run(self):
-        """The function on the filled buffers: a replay on the card, an
-        eager call otherwise, whose results are copied into the first
-        call's, so that each call overwrites the last one's outputs as a
-        replay does."""
-        if not self.graphs:
-            out = self._fn(*self._inputs())
-            if self._outputs is None:
-                self._outputs = out
-            for buf, x in zip(tree.tensors(self._outputs), tree.tensors(out)):
-                if buf is not x:
-                    buf.copy_(x)
-            return self._outputs
-        if self.graph is None:
-            self.graph = Graph(self._fn, self._inputs(), self.debug_path)
-        return self.graph.replay(self.name)
 
 
 class TrackOutput(NamedTuple):
@@ -292,16 +152,16 @@ class TrackProgram(Program):
         returned state carries ``state``'s generator."""
         for buf, x in zip(_state_tensors(self.state),
                           _state_tensors(state)):
-            fill(buf, x)
+            graphs.fill(buf, x)
         for buf, x in zip(self.view, trklib.make_track_view(view)):
-            fill(buf, x)
-        fill(self.frame, im)
-        fill(self.prev_sbi.template, prev_sbi.template)
-        fill(self.prev_sbi.jac, prev_sbi.jac)
-        fill(self.rand[0], rand_coarse)
-        fill(self.rand[1], rand_fine)
+            graphs.fill(buf, x)
+        graphs.fill(self.frame, im)
+        graphs.fill(self.prev_sbi.template, prev_sbi.template)
+        graphs.fill(self.prev_sbi.jac, prev_sbi.jac)
+        graphs.fill(self.rand[0], rand_coarse)
+        graphs.fill(self.rand[1], rand_fine)
         if isinstance(wiggle_depth_norm, Tensor):
-            fill(self.wiggle, wiggle_depth_norm)
+            graphs.fill(self.wiggle, wiggle_depth_norm)
             self._wiggle_value = None
         elif wiggle_depth_norm != self._wiggle_value:
             self.wiggle.fill_(float(wiggle_depth_norm))
@@ -341,8 +201,8 @@ class BuildProgram(Program):
             float(self.cfg.mapmaker.candidate_min_shi_tomasi_score))
 
     def __call__(self, im) -> kflib.FrameFeatures:
-        fill(self.frame, im)
-        return _clone(self.run())
+        graphs.fill(self.frame, im)
+        return graphs.clone(self.run())
 
 
 class RelocView(NamedTuple):
@@ -389,7 +249,7 @@ class RelocProgram(Program):
     def __call__(self, m, cur_sbi: sbiops.SBI) -> reloclib.RelocResult:
         """``m``: a MapState (or anything with ``RelocView``'s fields)."""
         for f, buf in zip(RelocView._fields, self.view):
-            fill(buf, getattr(m, f))
-        fill(self.sbi.template, cur_sbi.template)
-        fill(self.sbi.jac, cur_sbi.jac)
-        return _clone(self.run())
+            graphs.fill(buf, getattr(m, f))
+        graphs.fill(self.sbi.template, cur_sbi.template)
+        graphs.fill(self.sbi.jac, cur_sbi.jac)
+        return graphs.clone(self.run())
