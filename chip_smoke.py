@@ -16,7 +16,10 @@ Phases, each fatal on failure:
    for sm_90a, one nvcc each, all at once;
 2. K1 (FAST-10) against its plain PyTorch version over the pyramid atlas
    of a 640x480 frame, in one launch: mask atlas, scores and per-level
-   counts bit-identical, with and without the scores;
+   counts bit-identical, with and without the scores; and K1 on one
+   640x480 image (a table of one level, ``ops/fast.detect``, off the
+   engine's path): mask and score bit-identical, ``detect`` on the card
+   equal to the CPU's;
 2b. K3 (Shi-Tomasi) over the pyramid atlas of the 640x480 frame and over
    an atlas with bright borders in every level and in the unused area,
    in one launch: bit-identical; and the host time a call of the K3 and
@@ -198,9 +201,25 @@ Phases, each fatal on failure:
    11c, 11e and 12 also run the engine with ``MapMaker(graphs=False)``
    (and 11c, 12 with every program eager): p50, p95, max, keyframe frames
    and FPS beside the graphed run's; 11e's MapMaker runs equal in
-   outcome.
+   outcome;
+19. the bf16 frontend configuration (``FrontendConfig(atlas_bf16=True)``,
+   ``TrackerConfig(zmssd_bf16_cross=True)``): K2's bf16-source
+   instantiation (bf16 atlas, float32 windows) bit-identical to its
+   plain version at every path shape of phase 3, timed as phase 3 times
+   K2 (its library call: the unfolded bf16 view indexed, then cast, two
+   calls); ``SLAMEngine.process_frame`` under the configuration on
+   phase 11's 240 frames: 19b deterministic (every tracked frame GOOD,
+   11a's bars, launch counts, every K2 launch reading a bf16 atlas), 19c
+   card = CPU in outcome through two scheduler-integrated keyframes
+   (11b's bars), 19d latency mode (p50, p95, FPS beside 11c's); the
+   map's bytes and a ``copy_map`` (a worker pass's copy), float32 and
+   bf16.
+Phase 14 also runs the 2-rank ``compute_sharded`` with the sharded step's
+stretches eager (``graphs=False``): 14e, replay = eager bit for bit on
+each rank, chunk ms of both.
 The line before the last is a JSON summary of the kernels (numbers summed
-over a tracked frame's calls, K3's over a keyframe's;
+over a tracked frame's calls, K3's over a keyframe's; K2's bf16
+instantiation as ``gather_windows_bf16``, its launches phase 19's;
 ``launches_by_stream_async``: phase 12's launches by CUDA stream); the
 last line is the JSON result. Times are medians of CUDA-event timings.
 """
@@ -233,6 +252,7 @@ GRAPH_COND = "graph_cond"
 ST_VARIANTS = ((), ("ST_TILE_H=32",), ("ST_PX=1",),
                ("ST_TILE_W=32", "ST_PX=1"), ("ST_TILE_W=128", "ST_PX=4"))
 HOST_CALLS = 200
+DETECT_CAP = 1024    # phase 2: ops/fast.detect's corner list
 # The bound of a kernel call: H100 SXM HBM rate and float32 peak outside
 # the tensor cores (NVIDIA's data sheet, at 700 W); one add, subtract,
 # compare, min, max, multiply, divide or root counts as one operation.
@@ -1766,7 +1786,7 @@ def engine(torch, dev, card, kernels, reset_counts, counts):
     return dict(frames=frames, seq=seq, gframes=gframes, gseq=gseq,
                 make=make, run=run, targets=targets, expected=expected,
                 sync=c, grown=card_g, grown_times=gtimes, relocs=relocs,
-                grown_map=grown_map)
+                grown_map=grown_map, card_a=card_a)
 
 
 def wait_for(cond, seconds=30.0):
@@ -2241,6 +2261,25 @@ def rank_ba(torch, dev, rank, mesh, workdir, out):
     out["run.coll_seconds"] = np.array(stats.seconds)
     out["run.coll_calls"] = np.array([[k == "all_reduce", size, c] for
                                       (k, size), c in stats.calls.items()])
+    # The same run with the step's stretches eager (``graphs=False``).
+    with ChunkTimes(torch, sharded_ba, "sharded_lm_chunk") as eager:
+        st, n, flags = sharded_ba.compute_sharded(prob, mesh, cam,
+                                                  return_flags=True,
+                                                  graphs=False)
+    for k in ("cam_R", "cam_t", "pt_pos", "meas_bad"):
+        out[f"eager.{k}"] = getattr(st.problem, k).cpu().numpy()
+    out["eager.flags"] = np.array([int(x) for x in flags] + [n])
+    out["eager.chunk_ms"] = np.array(eager.ms)
+    # Chunks of one iteration each, graphed (the first chunk captures the
+    # four stretches) and eager: ms an LM iteration.
+    for key, on in (("g1", True), ("e1", False)):
+        with ChunkTimes(torch, sharded_ba, "sharded_lm_chunk") as one:
+            st, n, flags = sharded_ba.compute_sharded(
+                prob, mesh, cam, return_flags=True, graphs=on,
+                steps_per_dispatch=1)
+        out[f"{key}.pt_pos"] = st.problem.pt_pos.cpu().numpy()
+        out[f"{key}.flags"] = np.array([int(x) for x in flags] + [n])
+        out[f"{key}.chunk_ms"] = np.array(one.ms)
     sharded_ba.compute_sharded(
         prob, mesh, cam, abort_check=lambda: True,
         checkpoint_path=os.path.join(workdir, "ckpt.npz"),
@@ -2383,12 +2422,34 @@ def sharded_ba_phase(torch, dev, card):
         ranks = launch_ranks("ba", SHARD_RANKS, tmp)
         ranks_s = time.perf_counter() - t0
         ranks_identical(ranks, [k for k in ranks[0]
-                                if k.split(".")[0] in ("step", "run")
+                                if k.split(".")[0] in ("step", "run",
+                                                       "eager", "g1", "e1")
+                                and not k.endswith(".chunk_ms")
                                 and not k.startswith(("run.chunk",
                                                       "run.seconds",
                                                       "run.coll"))],
                         "14")
         r0 = ranks[0]
+        # 14e: the step's stretches replayed as CUDA graphs against the
+        # same stretches run eagerly, on each rank.
+        same = [all(np.array_equal(r[f"run.{k}"], r[f"eager.{k}"])
+                    for k in ("cam_R", "cam_t", "pt_pos", "meas_bad",
+                              "flags"))
+                and all(np.array_equal(r[f"g1.{k}"], r[f"e1.{k}"])
+                        for k in ("pt_pos", "flags")) for r in ranks]
+        print(f"[14e] the sharded step's stretches as CUDA graphs vs eager "
+              f"(2 gloo ranks): bit for bit on each rank {same}; chunk ms "
+              f"(CUDA events, rank 0) of the default run graphed "
+              f"{fmt_ms(r0['run.chunk_ms'])}, eager "
+              f"{fmt_ms(r0['eager.chunk_ms'])}; chunks of one iteration "
+              f"({int(r0['g1.flags'][4])} of them): graphed, the first with "
+              f"its 4 captures {float(r0['g1.chunk_ms'][0]):.2f}, the rest "
+              f"{fmt_ms(r0['g1.chunk_ms'][1:])}; eager "
+              f"{fmt_ms(r0['e1.chunk_ms'])}; rank 1 graphed rest "
+              f"{fmt_ms(ranks[1]['g1.chunk_ms'][1:])}, eager "
+              f"{fmt_ms(ranks[1]['e1.chunk_ms'])}  [{card}]")
+        check(all(same), "14e: the sharded replays differ from the eager "
+              "stretches")
         # 14a: one step against the one-process step, at JAX's at-scale
         # bars (tests/test_sharded_ba.py).
         iters, acc = int(r0["step.flags"][1]), int(r0["step.flags"][3])
@@ -3306,6 +3367,264 @@ def calibration_and_scene(torch, dev, card):
           "16b: the nonplanar run's ATE over the bar")
 
 
+def map_bytes(m):
+    """Bytes of a MapState's tensors (what a worker pass copies)."""
+    return sum(getattr(m, f.name).numel() * getattr(m, f.name).element_size()
+               for f in dataclasses.fields(m))
+
+
+def bf16_phase(torch, dev, card, kernels, entry, add_row, bound_text,
+               reset_counts, counts, ph11):
+    """Phase 19: the bf16 frontend configuration (``FrontendConfig(
+    atlas_bf16=True)``, ``TrackerConfig(zmssd_bf16_cross=True)``). K2's
+    bf16-source instantiation against its plain version at every path
+    shape (bit for bit), timed; then ``SLAMEngine.process_frame`` under
+    the configuration on phase 11's 240 frames: deterministic on the card
+    (every tracked frame GOOD, phase 11a's bars, launch counts), card =
+    CPU in outcome through two scheduler-integrated keyframes (11b's
+    bars), and the card's latency mode (p50, p95, FPS beside 11c's
+    float32 numbers); the map's bytes and a worker copy's time, float32
+    and bf16."""
+    import numpy as np
+    from ptam_cg_tpu_torch.config import (CameraConfig, EngineConfig,
+                                          FrontendConfig, MapMakerConfig,
+                                          TrackerConfig)
+    from ptam_cg_tpu_torch.kernels import gather as kgather
+    from ptam_cg_tpu_torch.models import engine as englib
+    from ptam_cg_tpu_torch.models import map_state as ms
+
+    k = kernels["gather_windows_bf16"] = entry(
+        "gather_windows_bf16", "ptam_cg_tpu_torch/csrc/gather_windows.cu",
+        "ptam_cg_tpu/ops/pallas_gather.py:50", 4, 2 + 3 * 4, True)
+    bf16 = kgather.bf16_source
+
+    # ---- 19a. K2 on bf16 atlases, at the path's shapes ----
+    rng = np.random.default_rng(19)
+    W, H = SIZE
+    Ha, Wa = H * 3 // 2, W
+    gen = torch.Generator(device=dev).manual_seed(19)
+    frame_atlas = (torch.rand(Ha, Wa, device=dev, generator=gen) * 255
+                   ).round().to(torch.bfloat16)
+    frame_mask = frame_atlas > 200.0
+    kf_atlases = (torch.rand(4 * Ha, Wa, device=dev, generator=gen) * 255
+                  ).round().to(torch.bfloat16)
+
+    def origins(src, n, D):
+        h, w = src.shape
+        org = np.stack([rng.integers(-8, h - D + 8, n),
+                        rng.integers(-8, w - D + 8, n)], -1)
+        org[:4] = [[-3, -3], [h, w], [h - D, -1], [0, w - D + 1]]
+        org = torch.from_numpy(org).to(dev)
+        return org[:, 0], org[:, 1]
+
+    def forms(oy, ox):
+        return ((oy, ox), (oy.contiguous(), ox.contiguous()),
+                (oy.to(torch.int32), ox.to(torch.int32)))
+
+    def library(a, oy, ox, D, cast=True):
+        """PyTorch calls for the same windows: an unfolded view indexed at
+        the clamped origins, then (``cast``) cast to float32."""
+        h, w = a.shape
+        oy, ox = oy.clamp(0, h - D), ox.clamp(0, w - D)
+        view = a.unfold(0, D, 1).unfold(1, D, 1)
+        if cast:
+            return lambda _: view[oy, ox].to(torch.float32)
+        return lambda _: view[oy, ox]
+
+    def win_bytes(src, oy, ox, D, es_in, es_out):
+        return (covered(src.shape, oy, ox, D) * es_in
+                + oy.numel() * D * D * es_out)
+
+    singles = [(kf_atlases, 128, 28, "coarse templates", 1, 0),
+               (kf_atlases, 1024, 28, "fine templates", 1, 0),
+               (kf_atlases, 2048, 28, "re-find templates", 0, 1),
+               (kf_atlases, 512, 28, "epipolar templates", 0, 4),
+               (frame_atlas, 2048, 8, "epipolar corner patches", 0, 4),
+               (frame_atlas, 512, 15, "sub-pixel window", 0, 4),
+               (frame_atlas, 512, 9, "MiniPatch cuts", 0, 0),
+               (frame_atlas, 512, 8, "template cuts", 0, 0)]
+    for src, n, D, what, per_frame, per_kf in singles:
+        oy, ox = origins(src, n, D)
+        for o in forms(oy, ox):
+            got = kgather.gather_windows(src, *o, D)
+            ref = kgather.gather_windows_plain(src, *o, D)
+            check(got.dtype == torch.float32 and torch.equal(got, ref),
+                  f"K2 bf16 differs from its plain version: {what} "
+                  f"{o[0].dtype} {o[0].stride()}")
+        check(torch.equal(got, library(src, oy, ox, D)(None)),
+              f"the library call differs from K2 bf16: {what}")
+        call = lambda _, a=src, y=oy, x=ox, d=D: kgather.gather_windows(
+            a, y, x, d)
+        ms_k = time_ms(call, torch)
+        plain = time_ms(lambda _: kgather.gather_windows_plain(src, oy, ox,
+                                                               D), torch)
+        lib = time_ms(library(src, oy, ox, D), torch)
+        dev_k, _ = device_us(call, torch, match="gather_")
+        dev_l, n_l = device_us(library(src, oy, ox, D), torch)
+        nbytes = win_bytes(src, oy, ox, D, 2, 4) + n * 16
+        if per_frame:
+            add_row(k, ms_k, plain, dev_k, nbytes, 0, lib)
+        print(f"[19a] K2 bf16 {what} N={n} D={D}: bit-identical (int64 and "
+              f"int32 origins, strided and contiguous); kernel {ms_k:.4f} "
+              f"ms, plain {plain:.4f} ms, library (two calls) {lib:.4f} ms "
+              f"(CUDA events); device: kernel {fmt_us(dev_k)}, library "
+              f"{fmt_us(dev_l)} ({n_l:.0f} kernels); {bound_text(nbytes, 0)};"
+              f" launches a frame {per_frame}, a keyframe {per_kf}  [{card}]")
+    pairs = [(128, 40, 33, "coarse search", 1, 0),
+             (1024, 30, 23, "fine search", 1, 0),
+             (2048, 16, 9, "re-find search", 0, 1),
+             (512, 29, 21, "trail search", 0, 0)]
+    for n, D, M, what, per_frame, per_kf in pairs:
+        oy, ox = origins(frame_atlas, n, D)
+        oy.clamp_(0, Ha - D)
+        ox.clamp_(0, Wa - D)
+        for o in forms(oy, ox):
+            got = kgather.gather_window_pair(frame_atlas, frame_mask, *o, D,
+                                             4, M)
+            ref = kgather.gather_window_pair_plain(frame_atlas, frame_mask,
+                                                   *o, D, 4, M)
+            check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+                  f"K2 bf16 pair differs from its plain version: {what} "
+                  f"{o[0].dtype} {o[0].stride()}")
+        lib_img = library(frame_atlas, oy, ox, D)
+        lib_msk = library(frame_mask, oy + 4, ox + 4, M, cast=False)
+        check(torch.equal(lib_img(None), got[0]),
+              f"the library call differs from the K2 bf16 pair: {what}")
+        pair = (lambda _, y=oy, x=ox, d=D, m_=M: kgather.gather_window_pair(
+            frame_atlas, frame_mask, y, x, d, 4, m_))
+        ms_k = time_ms(pair, torch)
+        plain = time_ms(lambda _: kgather.gather_window_pair_plain(
+            frame_atlas, frame_mask, oy, ox, D, 4, M), torch)
+        lib = time_ms(lambda _: (lib_img(None), lib_msk(None)), torch)
+        dev_k, n_k = device_us(pair, torch, match="gather_")
+        nbytes = (win_bytes(frame_atlas, oy, ox, D, 2, 4)
+                  + win_bytes(frame_mask, oy + 4, ox + 4, M, 1, 1) + n * 16)
+        if per_frame:
+            add_row(k, ms_k, plain, dev_k, nbytes, 0, lib)
+        print(f"[19a] K2 bf16 pair {what} N={n} D={D} bf16 -> f32 + M={M} "
+              f"bool: bit-identical; one launch ({n_k:.0f} kernels a call); "
+              f"kernel {ms_k:.4f} ms, plain {plain:.4f} ms, library (three "
+              f"calls: the image windows and their cast, the mask windows) "
+              f"{lib:.4f} ms (CUDA events); device {fmt_us(dev_k)}; "
+              f"{bound_text(nbytes, 0)}; launches a frame {per_frame}, a "
+              f"keyframe {per_kf}  [{card}]")
+    print(f"[19a] K2 bf16 summed over a tracked frame's calls: kernel "
+          f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, library "
+          f"{k['library_ms']:.4f} ms (CUDA events); device "
+          f"{fmt_us(k['device_us'])}; bound {k['bound_us']:.3f} us "
+          f"(float32 K2 over the same calls: "
+          f"{kernels['gather_windows']['bound_us']:.3f} us)  [{card}]")
+
+    # ---- 19b-d. the engine under the bf16 configuration ----
+    frames, seq = ph11["frames"], ph11["seq"]
+    targets, expected = ph11["targets"], ph11["expected"]
+
+    def make(device, **kw):
+        cfg = EngineConfig(
+            camera=CameraConfig(params=REF_PARAMS, image_size=SIZE),
+            mapmaker=MapMakerConfig(
+                candidate_min_shi_tomasi_score=ENG_CAND_MIN),
+            frontend=FrontendConfig(atlas_bf16=True),
+            tracker=TrackerConfig(zmssd_bf16_cross=True))
+        return englib.SLAMEngine(cfg, image_size=SIZE, device=device,
+                                 **ENG_MAP, **kw)
+
+    def engine_run(eng, ims, times=None):
+        """``run`` with K1-K3 and the bf16 K2 launches counted; returns
+        (infos, launches, expected launches, bf16 K2 launches)."""
+        torch.cuda.synchronize()
+        reset_counts()
+        bf16.launches = 0
+        bf16.launches_by_stream.clear()
+        with CallCounts(targets) as calls:
+            infos = run(eng, ims, times)
+            torch.cuda.synchronize()
+        launches = counts()
+        return infos, launches, expected(calls.n), bf16.launches
+
+    eng = make(dev, deterministic=True, draws=HostDraws(englib, 0, dev))
+    t0 = time.perf_counter()
+    card_a, launches, want, n16 = engine_run(eng, frames)
+    a_s = time.perf_counter() - t0
+    check(eng.map.kf_atlas.dtype == torch.bfloat16,
+          "19b: the engine's map is not bf16")
+    print(f"[19b] bf16 configuration, {len(frames)} frames, deterministic: "
+          f"{a_s:.1f} s (host clock); launches {launches}, expected {want}, "
+          f"K2 launches on bf16 atlases {n16}  [{card}]")
+    check(launches == want, "19b: launch counts differ")
+    check(n16 == launches["gather_windows"] > 0,
+          "19b: a K2 launch of the bf16 engine did not read a bf16 atlas")
+    k["launches"] += n16
+    first = engine_outcome(card_a, seq, torch, "19b")
+    not_good = [i for i, x in enumerate(card_a[first:], first)
+                if x.quality != 2]
+    check(not not_good, f"19b: tracked frames not GOOD: {not_good}")
+    f32_a = ph11.get("card_a")
+    if f32_a is not None:
+        same = sum(x.stage == y.stage and x.n_kfs == y.n_kfs
+                   for x, y in zip(card_a, f32_a))
+        med16, med32 = (statistics.median(x.n_found for x in run_[first:])
+                        for run_ in (card_a, f32_a))
+        print(f"[19b] against 11a's float32 run: {same}/{len(frames)} "
+              f"frames with the same stage and keyframe count; found a "
+              f"tracked frame median {med16} vs {med32}")
+
+    # 19c: card against CPU through two scheduler-integrated keyframes.
+    n_c = next((j + 1 for j, x in enumerate(card_a) if x.n_kfs >= 4), None)
+    check(n_c is not None, "19b: fewer than two keyframes integrated")
+    t0 = time.perf_counter()
+    cpu = run(make("cpu", deterministic=True,
+                   draws=HostDraws(englib, 0, "cpu")), frames[:n_c])
+    cpu_s = time.perf_counter() - t0
+    bad, d_R, d_t = engine_diffs(card_a[:n_c], cpu, first, torch)
+    found = [(j, x.n_found, y.n_found) for j, (x, y)
+             in enumerate(zip(card_a[:n_c], cpu)) if x.n_found != y.n_found]
+    print(f"[19c] card vs CPU over frames 0..{n_c - 1}: outcome differences "
+          f"{bad}; found counts that differ (frame, card, CPU) {found}; "
+          f"|dR| {d_R:.2e}, |dt| / |t| {d_t:.2e}; CPU {cpu_s:.1f} s")
+    check(not bad, "19c: card and CPU engines differ in outcome")
+    check(d_R <= ENG_ROT_TOL and d_t <= ENG_T_TOL,
+          "19c: card and CPU engine poses differ")
+
+    # 19d: the card's latency mode.
+    eng, times = make(dev), []
+    t0 = time.perf_counter()
+    lat, launches, want, n16 = engine_run(eng, frames, times)
+    wall = time.perf_counter() - t0
+    check(launches == want, f"19d: launch counts {launches} differ from "
+          f"{want}")
+    check(n16 == launches["gather_windows"], "19d: a K2 launch of the bf16 "
+          "engine did not read a bf16 atlas")
+    k["launches"] += n16
+    engine_outcome(lat, seq, torch, "19d")
+    c = latency_stats(lat, times)
+    c.update(fps=len(frames) / wall)
+    f32 = ph11["sync"]
+    print(f"[19d] bf16 configuration, latency mode, {len(frames)} frames: "
+          f"p50 {c['p50']:.1f} ms, p95 {c['p95']:.1f} ms, max "
+          f"{c['max']:.1f} ms over {c['n']} frames; {len(c['kf_frames'])} "
+          f"keyframe frames; {c['fps']:.2f} FPS (float32, 11c over its first "
+          f"{len(frames) - ENG_PROFILE - ENG_SYNC} frames: p50 "
+          f"{f32['p50']:.1f}, p95 {f32['p95']:.1f} ms, {f32['fps']:.2f} FPS)"
+          f"; K2 launches {n16}  [{card}]")
+    print_captures("19d", eng)
+
+    # The map's bytes and what a worker pass's copy of it costs.
+    maps = {"float32": ms.empty_map(SIZE, ENG_MAP["max_points"],
+                                    ENG_MAP["max_kfs"], dev),
+            "bf16": eng.snapshot()}
+    for tag, m in maps.items():
+        copy_ms = time_ms(lambda _, m=m: ms.copy_map(m), torch)
+        dev_c, n_c = device_us(lambda _, m=m: ms.copy_map(m), torch)
+        print(f"[19d] a {tag} map ({ENG_MAP['max_points']} points, "
+              f"{ENG_MAP['max_kfs']} keyframes): {map_bytes(m) / 1e6:.3f} "
+              f"MB, of which keyframe atlases "
+              f"{m.kf_atlas.numel() * m.kf_atlas.element_size() / 1e6:.3f} "
+              f"MB; a copy (``copy_map``, a worker pass's) {copy_ms:.4f} ms "
+              f"(CUDA events), device {fmt_us(dev_c)} in {n_c:.0f} kernels"
+              f"  [{card}]")
+
+
 def main():
     t_script = time.perf_counter()
     faulthandler.enable()       # a crash prints every thread's traceback
@@ -3464,6 +3783,34 @@ def main():
               f"{bound_text(nbytes, ops)}; launches a frame "
               f"{1 if not score else 0}, a keyframe {1 if score else 0}"
               f"  [{card}]")
+
+    # K1 on one image (``ops/fast.detect``): a table of one level.
+    from ptam_cg_tpu_torch.ops import fast as fastops
+    im0, t_det = pyramid[0], float(thresholds[0])
+    got = kfast.fast_image(im0, t_det)
+    ref = kfast.fast_score_map_plain(im0, t_det)
+    check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+          "K1 on one image differs from its plain version: "
+          f"{max_abs_diff(got[1], ref[1])}")
+    det = fastops.detect(im0, t_det, DETECT_CAP)
+    det_cpu = fastops.detect(im0.cpu(), t_det, DETECT_CAP)
+    check(all(torch.equal(x.cpu(), y) for x, y in zip(
+        (det[0], det[1], *det[2]), (det_cpu[0], det_cpu[1], *det_cpu[2]))),
+        "ops/fast.detect on the card differs from the CPU's")
+    call = lambda _: kfast.fast_image(im0, t_det)      # noqa: E731
+    ms_k = time_ms(call, torch)
+    plain = time_ms(lambda _: kfast.fast_score_map_plain(im0, t_det), torch)
+    dev_k, n_k = device_us(call, torch, match="fast10")
+    n_inner, n_polar = fast_work([im0], [t_det], torch)
+    # Read: the image; written: the mask, the score and the counts.
+    nbytes = im0.numel() * (4 + 1 + 4) + 16
+    ops = n_inner * 11 + n_polar * 81 + int(got[0].sum())
+    print(f"[2] K1 on one {SIZE[0]}x{SIZE[1]} image (ops/fast.detect, off "
+          f"the path): bit-identical (mask, score), detect card = CPU "
+          f"({int(det[2].count)} corners of {DETECT_CAP}); kernel "
+          f"{ms_k:.4f} ms, plain {plain:.4f} ms (CUDA events); device "
+          f"{fmt_us(dev_k)} in {n_k:.0f} launch; {bound_text(nbytes, ops)}; "
+          f"launches on the engine's path 0  [{card}]")
 
     # ---- 2b. K3 against its plain version ----
     k = kernels["shi_tomasi"]
@@ -4008,6 +4355,10 @@ def main():
 
     # ---- 18. the MapMaker's programs and BA's chunk as CUDA graphs ----
     map_programs_phase(torch, dev, card, mods, kernels, ph6, ph11)
+
+    # ---- 19. the bf16 frontend configuration ----
+    bf16_phase(torch, dev, card, kernels, entry, add_row, bound_text,
+               reset_launch_counts, launch_counts, ph11)
 
     check(not any(k == "jax" or k.startswith("jax.") for k in sys.modules),
           "jax was imported")

@@ -11,6 +11,12 @@ moves between the two packages either way. The port writes no
 ``trk.key`` (a JAX PRNG key; the JAX loader does without one) and does
 not save the port's ``LMState.layout``, which ``load_ba_state`` builds
 again from the problem.
+
+A bfloat16 ``kf_atlas`` (``FrontendConfig.atlas_bf16``) is written as the
+JAX package writes its own: ``np.asarray`` of a JAX bfloat16 array is an
+ml_dtypes array, which ``np.savez`` stores as raw two-byte ``|V2``
+elements. The loaders read ``|V2`` (and ml_dtypes' bfloat16) back as
+``torch.bfloat16`` through a 16-bit integer view, bit for bit.
 """
 
 from __future__ import annotations
@@ -33,7 +39,28 @@ _LM_SCALARS = ("lam", "lam_factor", "converged", "accepted", "iters",
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    """A tensor as numpy; bfloat16 as the raw ``|V2`` elements JAX's
+    checkpoints hold."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
+def is_bf16(a: np.ndarray) -> bool:
+    """Whether a numpy array holds bfloat16: ml_dtypes' (an array of a JAX
+    bfloat16 tensor) or the raw ``|V2`` elements ``np.load`` gives back."""
+    return a.dtype.name == "bfloat16" or (a.dtype.kind == "V"
+                                          and a.dtype.itemsize == 2)
+
+
+def tensor_of(a: np.ndarray, device) -> torch.Tensor:
+    """A writable copy of a numpy array as a tensor of the same dtype on
+    ``device``; bfloat16 (``is_bf16``) as ``torch.bfloat16``."""
+    if is_bf16(a):
+        return torch.from_numpy(np.array(a, copy=True).view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
 def _savez(path: str, arrays: dict) -> None:
@@ -71,7 +98,7 @@ def load_map(path: str, device="cuda"):
     data = np.load(path)
 
     def t(name):
-        return torch.from_numpy(np.asarray(data[name])).to(device)
+        return tensor_of(data[name], device)
 
     m = MapState(**{f.name: t(f"map.{f.name}")
                     for f in dataclasses.fields(MapState)})
@@ -107,7 +134,7 @@ def load_ba_state(path: str, device="cuda") -> bundle.LMState:
     data = np.load(path)
 
     def t(name):
-        return torch.from_numpy(np.asarray(data[name])).to(device)
+        return tensor_of(data[name], device)
 
     prob = bundle.BundleProblem(**{
         f.name: t(f"prob.{f.name}")

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ptam_cg_tpu_torch.camera.atan import Camera
+from ptam_cg_tpu_torch.io.checkpoint import tensor_of
 from ptam_cg_tpu_torch.config import BundleConfig
 from ptam_cg_tpu_torch.models import bundle, homography, initializer
 from ptam_cg_tpu_torch.models.keyframe import FrameFeatures, TrackFeatures
@@ -33,8 +34,10 @@ def as_numpy_tree(obj):
 
 
 def tensor(a, device="cuda") -> torch.Tensor:
-    """A writable copy of a numpy array as a tensor of the same dtype."""
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    """A writable copy of a numpy array as a tensor of the same dtype
+    (an ml_dtypes bfloat16 array, a JAX bfloat16 atlas's, as
+    ``torch.bfloat16``)."""
+    return tensor_of(np.asarray(a), device)
 
 
 def _fields(cls, d: dict, device) -> dict:

@@ -12,7 +12,8 @@ integer atomic add per block and level. It runs the plain version for a
 CPU tensor and the kernel for a CUDA tensor, bit-identical either way:
 the function uses only f32 add, subtract, min and max.
 ``fast_score_map_plain`` is the single-image function, the plain version
-of each level.
+of each level. ``fast_image`` runs the kernel on one image, as a table of
+one level covering it (the other three empty): ``ops/fast.detect``.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ CIRCLE = (
     (0, 3), (-1, 3), (-2, 2), (-3, 1), (-3, 0), (-3, -1), (-2, -2), (-1, -3),
 )
 
-#: Kernel launches made by ``fast_atlas`` in this process.
+#: Kernel launches made by ``fast_atlas`` and ``fast_image`` in this
+#: process.
 launches = 0
 #: The same launches by CUDA stream (raw handle; 0 is the legacy default
 #: stream), counted with ``launches`` by ``_build.count_launch``.
@@ -122,13 +124,34 @@ def fast_atlas(atlas: Tensor, thresholds: Sequence[float], *,
     if len(thresholds) != len(rects):
         raise ValueError(f"fast_atlas: {len(thresholds)} thresholds for "
                          f"{len(rects)} levels")
-    if atlas.device.type != "cuda" or atlas.dtype != torch.float32:
-        raise ValueError(f"fast_atlas: need a float32 CUDA atlas, got "
-                         f"{atlas.dtype} on {atlas.device}")
+    return _launch(atlas, rects, thresholds, scores, "fast_atlas")
+
+
+def fast_image(im: Tensor, threshold: float) -> Tuple[Tensor, Tensor]:
+    """FAST-10 on one (H, W) float32 image: (is_corner (H, W) bool, score
+    (H, W) float32), ``fast_score_map_plain``'s. The kernel's level table
+    holds one level covering the image and three empty ones."""
+    if im.device.type == "cpu":
+        return fast_score_map_plain(im, threshold)
+    H, W = im.shape
+    rects = ((0, 0, H, W),) + ((0, 0, 0, 0),) * (levelops.LEVELS - 1)
+    mask, score, _ = _launch(im, rects, (float(threshold),) * len(rects),
+                             True, "fast_image")
+    return mask, score
+
+
+def _launch(atlas: Tensor, rects, thresholds, scores: bool, what: str):
+    """One K1 launch over ``atlas`` with the level table ``rects`` (4
+    (row, col, height, width)) and a threshold a level."""
+    if atlas.device.type != "cuda" or atlas.dtype != torch.float32 or \
+            atlas.ndim != 2:
+        raise ValueError(f"{what}: need a 2-D float32 CUDA image, got "
+                         f"{tuple(atlas.shape)} {atlas.dtype} on "
+                         f"{atlas.device}")
     atlas = atlas.contiguous()
     Ha, Wa = atlas.shape
     if Wa % 4 or atlas.data_ptr() % 16:
-        raise ValueError(f"fast_atlas: the kernel reads 16-byte rows; width "
+        raise ValueError(f"{what}: the kernel reads 16-byte rows; width "
                          f"{Wa} is no multiple of 4 or the data unaligned")
     n = len(rects)
     flat = [int(v) for rect in rects for v in rect]
@@ -145,5 +168,5 @@ def fast_atlas(atlas: Tensor, thresholds: Sequence[float], *,
                     (ctypes.c_float * n)(*[float(t) for t in thresholds]),
                     mask.data_ptr(), 0 if sc is None else sc.data_ptr(),
                     0 if cnt is None else cnt.data_ptr(),
-                    stream), "fast_atlas")
+                    stream), what)
     return mask, sc, cnt

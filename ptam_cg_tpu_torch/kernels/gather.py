@@ -13,7 +13,10 @@ strided or not: the kernel reads them as they are, so a caller needs no
 cast and no stack. ``gather_window_pair`` gathers an image window and a
 corner-mask window of the same points in one launch. Both entries run
 the plain version for CPU tensors and the kernel for CUDA tensors; both
-are exact copies of float32 images and bool / uint8 masks.
+are exact copies of float32 images and bool / uint8 masks. A bfloat16
+atlas (``FrontendConfig.atlas_bf16``) gives float32 windows, as the JAX
+package's ``gather_windows_rowtake`` does for one
+(``preferred_element_type=f32``); bf16 -> float32 is exact.
 """
 
 from __future__ import annotations
@@ -35,18 +38,33 @@ launches = 0
 launches_by_stream: dict = {}
 
 
+class _Launches:
+    """A count of launches kept as a wrapper module keeps its own
+    (``_build.count_launch`` takes either; a capture's tally keys it by
+    identity)."""
+
+    def __init__(self):
+        self.launches = 0
+        self.launches_by_stream: dict = {}
+
+
+#: The launches among them that read a bfloat16 atlas.
+bf16_source = _Launches()
+
+
 def gather_windows_plain(atlas: Tensor, oy: Tensor, ox: Tensor, D: int,
                          offset: int = 0) -> Tensor:
     """Plain PyTorch gather: atlas (Ha, Wa); the (oy, ox) columns of the
     top-left corners, moved by ``offset`` and clamped -> (N, D, D) of the
-    atlas dtype."""
+    atlas dtype (float32 for a bfloat16 atlas)."""
     Ha, Wa = atlas.shape
     oy = torch.clamp(oy.long() + offset, 0, Ha - D)
     ox = torch.clamp(ox.long() + offset, 0, Wa - D)
     ii = torch.arange(D, device=atlas.device)
     rows = (oy[:, None] + ii)[:, :, None]
     cols = (ox[:, None] + ii)[:, None, :]
-    return atlas[rows, cols]
+    win = atlas[rows, cols]
+    return win.to(torch.float32) if win.dtype == torch.bfloat16 else win
 
 
 def gather_window_pair_plain(atlas: Tensor, mask: Tensor, oy: Tensor,
@@ -70,6 +88,8 @@ _SIGNATURES = {
                            ctypes.c_void_p, ctypes.c_void_p],
 }
 _SIGNATURES["gather_windows_u8"] = _SIGNATURES["gather_windows_f32"]
+_SIGNATURES["gather_windows_bf16"] = _SIGNATURES["gather_windows_f32"]
+_SIGNATURES["gather_window_pair_bf16"] = _SIGNATURES["gather_window_pair"]
 
 
 def _entry(name: str):
@@ -82,13 +102,23 @@ def _entry(name: str):
 
 _ENTRIES = {torch.float32: "gather_windows_f32",
             torch.uint8: "gather_windows_u8",
-            torch.bool: "gather_windows_u8"}
+            torch.bool: "gather_windows_u8",
+            torch.bfloat16: "gather_windows_bf16"}
+_PAIR_ENTRIES = {torch.float32: "gather_window_pair",
+                 torch.bfloat16: "gather_window_pair_bf16"}
+
+
+def _count(atlas: Tensor, stream: int) -> None:
+    _build.count_launch(sys.modules[__name__], stream)
+    if atlas.dtype == torch.bfloat16:
+        _build.count_launch(bf16_source, stream)
 
 
 def _check_atlas(atlas: Tensor, dtypes, what: str) -> None:
     if atlas.device.type != "cuda" or atlas.ndim != 2 or \
             atlas.dtype not in dtypes:
-        raise ValueError(f"{what}: need a 2-D CUDA atlas of {dtypes}, got "
+        raise ValueError(f"{what}: need a 2-D CUDA atlas of "
+                         f"{tuple(dtypes)}, got "
                          f"{tuple(atlas.shape)} {atlas.dtype} on "
                          f"{atlas.device}")
 
@@ -116,7 +146,8 @@ def _origin_args(atlas: Tensor, oy: Tensor, ox: Tensor, sizes, what: str):
 
 
 def gather_windows(atlas: Tensor, oy: Tensor, ox: Tensor, D: int) -> Tensor:
-    """(N, D, D) windows of ``atlas`` at the clamped (oy, ox) origins."""
+    """(N, D, D) windows of ``atlas`` at the clamped (oy, ox) origins, in
+    the atlas dtype (float32 for a bfloat16 atlas)."""
     if atlas.device.type == "cpu":
         return gather_windows_plain(atlas, oy, ox, D)
     _check_atlas(atlas, _ENTRIES, "gather_windows")
@@ -124,12 +155,13 @@ def gather_windows(atlas: Tensor, oy: Tensor, ox: Tensor, D: int) -> Tensor:
                                             "gather_windows")
     atlas = atlas.contiguous()
     Ha, Wa = atlas.shape
-    out = torch.empty((N, D, D), dtype=atlas.dtype, device=atlas.device)
+    out = torch.empty((N, D, D), device=atlas.device, dtype=(
+        torch.float32 if atlas.dtype == torch.bfloat16 else atlas.dtype))
     if N == 0:
         return out
     fn = _entry(_ENTRIES[atlas.dtype])
     stream = _build.stream_handle(atlas)
-    _build.count_launch(sys.modules[__name__], stream)
+    _count(atlas, stream)
     _build.check(fn(atlas.data_ptr(), Ha, Wa, py, px, sy, sx, idx64, N, D,
                     out.data_ptr(), stream),
                  "gather_windows")
@@ -138,12 +170,13 @@ def gather_windows(atlas: Tensor, oy: Tensor, ox: Tensor, D: int) -> Tensor:
 
 def gather_window_pair(atlas: Tensor, mask: Tensor, oy: Tensor, ox: Tensor,
                        D: int, offset: int, M: int):
-    """In one launch: the (N, D, D) float32 windows of ``atlas`` at the
-    clamped origins, and the (N, M, M) windows of the bool ``mask`` (same
-    shape as the atlas) at the origins moved by ``offset``, clamped."""
+    """In one launch: the (N, D, D) float32 windows of the float32 or
+    bfloat16 ``atlas`` at the clamped origins, and the (N, M, M) windows of
+    the bool ``mask`` (same shape as the atlas) at the origins moved by
+    ``offset``, clamped."""
     if atlas.device.type == "cpu":
         return gather_window_pair_plain(atlas, mask, oy, ox, D, offset, M)
-    _check_atlas(atlas, (torch.float32,), "gather_window_pair")
+    _check_atlas(atlas, _PAIR_ENTRIES, "gather_window_pair")
     _check_atlas(mask, (torch.bool, torch.uint8), "gather_window_pair")
     if mask.shape != atlas.shape or mask.device != atlas.device:
         raise ValueError("gather_window_pair: mask and atlas differ: "
@@ -154,13 +187,13 @@ def gather_window_pair(atlas: Tensor, mask: Tensor, oy: Tensor, ox: Tensor,
     atlas = atlas.contiguous()
     mask = mask.contiguous()
     Ha, Wa = atlas.shape
-    out = torch.empty((N, D, D), dtype=atlas.dtype, device=atlas.device)
+    out = torch.empty((N, D, D), dtype=torch.float32, device=atlas.device)
     mout = torch.empty((N, M, M), dtype=mask.dtype, device=atlas.device)
     if N == 0:
         return out, mout
-    fn = _entry("gather_window_pair")
+    fn = _entry(_PAIR_ENTRIES[atlas.dtype])
     stream = _build.stream_handle(atlas)
-    _build.count_launch(sys.modules[__name__], stream)
+    _count(atlas, stream)
     _build.check(fn(atlas.data_ptr(), mask.data_ptr(), Ha, Wa, py, px, sy,
                     sx, idx64, N, D, offset, M, out.data_ptr(),
                     mout.data_ptr(), stream),

@@ -210,9 +210,10 @@ class SLAMEngine:
             raise ValueError("async_mapping times its passes by the host; "
                              "a multi-rank mesh needs the synchronous "
                              "engine")
-        if cfg.frontend.atlas_bf16:
-            raise NotImplementedError("FrontendConfig.atlas_bf16 is not ported")
         self.cfg = cfg
+        #: The map's atlas dtype, fixed at construction as the JAX
+        #: engine's is (bfloat16 under ``cfg.frontend.atlas_bf16``).
+        self._atlas_dtype = ms.atlas_dtype(cfg.frontend)
         self.device = torch.device(device)
         self._seed = seed
         self._deterministic = deterministic
@@ -258,7 +259,8 @@ class SLAMEngine:
     def _new_map(self):
         """An empty map, a new MapMaker and a new tracker state."""
         P, K = self._capacity
-        self.map = ms.empty_map(self.image_size, P, K, self.device)
+        self.map = ms.empty_map(self.image_size, P, K, self.device,
+                                self._atlas_dtype)
         self.mapmaker = mmlib.MapMaker(
             self.map, self.cam, self.image_size, self.cfg.mapmaker,
             self.cfg.bundle, seed=self._seed,

@@ -35,7 +35,7 @@ CAND_CAP = MAX_CANDIDATES
 class TrackFeatures:
     """What the tracker reads from a frame."""
 
-    atlas: Tensor            # (Ha, W) float32 packed pyramid
+    atlas: Tensor            # (Ha, W) packed pyramid, float32 or bfloat16
     corner_mask: Tensor      # (Ha, W) bool raw FAST corners, all levels
     sbi: sbiops.SBI          # relocalizer SBI (blur 2.5)
     sbi_track: sbiops.SBI    # rotation-estimator SBI (blur 0.75)
@@ -45,7 +45,7 @@ class TrackFeatures:
 class FrameFeatures:
     """A keyframe's full build: ``TrackFeatures`` plus the lists."""
 
-    atlas: Tensor            # (Ha, W) float32 packed pyramid
+    atlas: Tensor            # (Ha, W) packed pyramid, float32 or bfloat16
     corner_mask: Tensor      # (Ha, W) bool raw FAST corners, all levels
     corner_count: Tensor     # (LEVELS,) int32
     max_xy: Tensor           # (LEVELS, NONMAX_CAP, 2) int32 level coords
@@ -106,12 +106,18 @@ def make_frame_rest(pyramid: Tuple[Tensor, ...], scores: Tuple[Tensor, ...],
     return stack(maxes), stack(cands), sbiops.make_sbi(pyramid[3], sbi_blur)
 
 
+def _stored(atlas: Tensor, cfg: FrontendConfig) -> Tensor:
+    """The atlas as a frame stores it: bfloat16 with ``cfg.atlas_bf16``
+    (every later read goes through K2, which returns float32 windows)."""
+    return atlas.to(torch.bfloat16) if cfg.atlas_bf16 else atlas
+
+
 def build_frame(im: Tensor, cfg: FrontendConfig = FrontendConfig(),
                 candidate_min_score: float = 400.0, sbi_blur: float = 2.5,
                 track_blur: float = 0.75) -> FrameFeatures:
-    """Full keyframe build of one (H, W) float32 frame (Lite + Rest)."""
-    if cfg.atlas_bf16:
-        raise NotImplementedError("FrontendConfig.atlas_bf16 is not ported")
+    """Full keyframe build of one (H, W) float32 frame (Lite + Rest). With
+    ``cfg.atlas_bf16`` the atlas is stored in bfloat16 after K1 and K3
+    have read it in float32."""
     pyramid, atlas, corner_mask, scores, counts = make_frame_lite(im, cfg)
     st_atlas = imops.shi_tomasi_atlas(atlas)          # kernel K3
     h, w = im.shape
@@ -120,7 +126,8 @@ def build_frame(im: Tensor, cfg: FrontendConfig = FrontendConfig(),
     (mx, ms, mv), (cx, cs, cv), the_sbi = make_frame_rest(
         pyramid, scores, st_maps, candidate_min_score, sbi_blur)
     return FrameFeatures(
-        atlas=atlas, corner_mask=corner_mask, corner_count=counts,
+        atlas=_stored(atlas, cfg), corner_mask=corner_mask,
+        corner_count=counts,
         max_xy=mx, max_score=ms, max_valid=mv,
         cand_xy=cx, cand_score=cs, cand_valid=cv, sbi=the_sbi,
         sbi_track=sbiops.make_sbi(pyramid[3], track_blur))
@@ -129,11 +136,10 @@ def build_frame(im: Tensor, cfg: FrontendConfig = FrontendConfig(),
 def build_frame_tracking(im: Tensor, cfg: FrontendConfig = FrontendConfig(),
                          sbi_blur: float = 2.5,
                          track_blur: float = 0.75) -> TrackFeatures:
-    """Pyramid atlas + corner mask + both SBIs of one (H, W) float32 frame."""
-    if cfg.atlas_bf16:
-        raise NotImplementedError("FrontendConfig.atlas_bf16 is not ported")
+    """Pyramid atlas + corner mask + both SBIs of one (H, W) float32 frame
+    (the atlas in bfloat16 after K1 with ``cfg.atlas_bf16``)."""
     pyramid, atlas, corner_mask, _, _ = make_frame_lite(im, cfg,
                                                         scores=False)
-    return TrackFeatures(atlas=atlas, corner_mask=corner_mask,
+    return TrackFeatures(atlas=_stored(atlas, cfg), corner_mask=corner_mask,
                          sbi=sbiops.make_sbi(pyramid[3], sbi_blur),
                          sbi_track=sbiops.make_sbi(pyramid[3], track_blur))

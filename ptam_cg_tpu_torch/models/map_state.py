@@ -59,7 +59,7 @@ class MapState:
     kf_t: Tensor               # (K, 3)
     kf_valid: Tensor           # (K,) bool
     kf_fixed: Tensor           # (K,) bool
-    kf_atlas: Tensor           # (K, Ha, W) float32
+    kf_atlas: Tensor           # (K, Ha, W) float32, or bfloat16
     kf_corner_mask: Tensor     # (K, Ha, W) bool
     kf_max_xy: Tensor          # (K, LEVELS, NONMAX_CAP, 2) int32
     kf_max_valid: Tensor       # (K, LEVELS, NONMAX_CAP) bool
@@ -81,8 +81,11 @@ class MapState:
 
 
 def empty_map(image_size: Tuple[int, int], max_points: int = 2048,
-              max_kfs: int = 32, device="cuda") -> MapState:
-    """An all-invalid map (Map::Reset)."""
+              max_kfs: int = 32, device="cuda",
+              atlas_dtype=torch.float32) -> MapState:
+    """An all-invalid map (Map::Reset). ``atlas_dtype``: the keyframe
+    atlases' storage dtype, ``torch.bfloat16`` under
+    ``FrontendConfig.atlas_bf16`` (the JAX package's ``atlas_dtype``)."""
     W, H = image_size
     Ha = H + H // 2
     h_sbi, w_sbi = (H >> 3) // 2, (W >> 3) // 2
@@ -102,7 +105,7 @@ def empty_map(image_size: Tuple[int, int], max_points: int = 2048,
         point_outlier=z(P, i32), point_source=z(P, i32),
         kf_R=torch.eye(3, dtype=f32, device=device).repeat(K, 1, 1),
         kf_t=z((K, 3), f32), kf_valid=z(K, b), kf_fixed=z(K, b),
-        kf_atlas=z((K, Ha, W), f32), kf_corner_mask=z((K, Ha, W), b),
+        kf_atlas=z((K, Ha, W), atlas_dtype), kf_corner_mask=z((K, Ha, W), b),
         kf_max_xy=z((K, LEVELS, NONMAX_CAP, 2), i32),
         kf_max_valid=z((K, LEVELS, NONMAX_CAP), b),
         kf_cand_xy=z((K, LEVELS, CAND_CAP, 2), i32),
@@ -118,8 +121,15 @@ def empty_map(image_size: Tuple[int, int], max_points: int = 2048,
         good=z((), b))
 
 
+def atlas_dtype(frontend_cfg) -> torch.dtype:
+    """The atlases' storage dtype under a ``FrontendConfig``: bfloat16
+    with ``atlas_bf16`` (the JAX engine's choice, engine.py:112-113)."""
+    return torch.bfloat16 if frontend_cfg.atlas_bf16 else torch.float32
+
+
 def copy_map(m: MapState) -> MapState:
-    """A copy of ``m`` that shares no storage with it."""
+    """A copy of ``m`` that shares no storage with it (each field keeps
+    its dtype)."""
     return dataclasses.replace(m, **{
         f.name: getattr(m, f.name).clone() for f in dataclasses.fields(m)})
 

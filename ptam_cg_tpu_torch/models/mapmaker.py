@@ -795,7 +795,7 @@ def apply_global_transform(m: MapState, T: SE3) -> MapState:
 # The MapMaker's programs (the JAX MapMaker's jitted jobs) as CUDA graphs
 # ---------------------------------------------------------------------------
 
-#: Chunk graphs a MapMaker keeps (one per problem shape and layout).
+#: Chunk programs a MapMaker keeps (one per problem shape and layout).
 MAX_CHUNK_GRAPHS = 8
 
 
@@ -820,7 +820,9 @@ class MapPrograms:
     span width), the epipolar job per level, local BA's masks, the
     extraction and the write-back per BA tier, GC and the plane alignment;
     and BA's LM chunks (``bundle.ChunkProgram``, a graph per problem shape
-    and layout, the last ``MAX_CHUNK_GRAPHS`` kept).
+    and layout; with a mesh, ``sharded_ba.ShardedPrograms``, four graphs
+    per shard shape and layout, their own memory pools; the last
+    ``MAX_CHUNK_GRAPHS`` of the two kept).
 
     The map (``map``), the failure and new-point masks and every job's
     other inputs are static buffers; each program writes its results into
@@ -906,6 +908,25 @@ class MapPrograms:
                                           self.kind, self.graphs,
                                           self._path(label), self.pool)
             prog.label = label
+            self.chunks[key] = prog
+            while len(self.chunks) > MAX_CHUNK_GRAPHS:
+                self.chunks.popitem(last=False)
+        self.chunks.move_to_end(key)
+        return prog
+
+    def sharded(self, state: bundlelib.LMState, mesh,
+                ba_cfg: BundleConfig) -> sharded_ba.ShardedPrograms:
+        """The sharded LM step's programs (``sharded_ba.ShardedPrograms``)
+        of ``state``'s shard shape and layout under ``ba_cfg``, kept with
+        the chunk programs; their captures are listed in ``captures``."""
+        key = ("sharded",) + sharded_ba.ShardedPrograms.key_of(
+            state, mesh, ba_cfg, self.kind)
+        prog = self.chunks.get(key)
+        if prog is None:
+            prog = sharded_ba.ShardedPrograms(state, mesh, self.cam, ba_cfg,
+                                              self.kind, self.graphs,
+                                              self.debug_dir)
+            prog.captures = self.captures
             self.chunks[key] = prog
             while len(self.chunks) > MAX_CHUNK_GRAPHS:
                 self.chunks.popitem(last=False)
@@ -1332,9 +1353,11 @@ class MapMaker:
         t0 = time.perf_counter()
         job["iters_before"] = job["iters_done"]
         if job["sharded"]:
+            progs = self.programs.sharded(job["state"], self.mesh,
+                                          self.ba_cfg)
             job["state"], job["flags"] = sharded_ba.sharded_lm_chunk(
                 job["state"], self.mesh, self.cam, self.ba_cfg, self._kind,
-                self._chunk_target(job), job["flags"])
+                self._chunk_target(job), job["flags"], progs)
         elif self.programs.graphs:
             # The program of the config in force now: the console may
             # replace it between chunks.

@@ -83,7 +83,9 @@ class TrackProgram(Program):
     previous frame's rotation-estimator SBI, the ``TrackView``'s 14
     tables, the coarse and fine uniforms (``rand``: draw into them) and
     ``wiggle_depth_norm`` (a 0-dim tensor, refilled when the float
-    changes). K1 launches once and K2 four times a call."""
+    changes). The view's keyframe atlases are in the dtype of
+    ``cfg.frontend`` (``map_state.atlas_dtype``), as the frame's atlas
+    is. K1 launches once and K2 four times a call."""
 
     name = "track_frame_from_image"
 
@@ -101,8 +103,9 @@ class TrackProgram(Program):
         self.prev_sbi = sbiops.SBI(
             template=torch.zeros((h, w), dtype=torch.float32, device=dev),
             jac=torch.zeros((h, w, 2), dtype=torch.float32, device=dev))
-        self.view = trklib.make_track_view(
-            ms.empty_map(image_size, *capacity, device=dev))
+        self.view = trklib.make_track_view(ms.empty_map(
+            image_size, *capacity, device=dev,
+            atlas_dtype=ms.atlas_dtype(cfg.frontend)))
         self.rand = tuple(torch.zeros(capacity[0], dtype=torch.float32,
                                       device=dev) for _ in range(2))
         self.wiggle = torch.ones((), dtype=torch.float32, device=dev)
@@ -110,7 +113,8 @@ class TrackProgram(Program):
 
     @staticmethod
     def key_of(cfg, frame_dtype, capacity):
-        return (cfg.tracker, cfg.frontend, cfg.mapmaker.wiggle_scale,
+        return (cfg.tracker, cfg.frontend, ms.atlas_dtype(cfg.frontend),
+                cfg.mapmaker.wiggle_scale,
                 cfg.mapmaker.max_kf_dist_wiggle_mult, frame_dtype,
                 tuple(capacity))
 
@@ -188,7 +192,7 @@ class BuildProgram(Program):
 
     @staticmethod
     def key_of(cfg, frame_dtype, capacity):
-        return (cfg.frontend,
+        return (cfg.frontend, ms.atlas_dtype(cfg.frontend),
                 float(cfg.mapmaker.candidate_min_shi_tomasi_score),
                 frame_dtype)
 

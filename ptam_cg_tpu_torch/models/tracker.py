@@ -147,8 +147,7 @@ class TrackResult:
 
 
 def validate_config(cfg: TrackerConfig) -> None:
-    """Reject configs whose search radii exceed the static windows, and
-    the bf16 options (TPU-only, not ported)."""
+    """Reject configs whose search radii exceed the static windows."""
     worst_coarse = math.ceil(2.0 * cfg.coarse_range / (1 << (LEVELS - 2)))
     if worst_coarse > R_WIN - 1:
         raise ValueError(
@@ -161,9 +160,6 @@ def validate_config(cfg: TrackerConfig) -> None:
         raise ValueError(
             f"TrackerConfig fine range {worst_fine} exceeds the fine window "
             f"FINE_R_WIN={FINE_R_WIN} (usable radius {FINE_R_WIN - 1}).")
-    if cfg.zmssd_bf16_cross:
-        raise NotImplementedError(
-            "TrackerConfig.zmssd_bf16_cross is not ported")
 
 
 def _topk_pad(keys: Tensor, cap: int) -> Tensor:
@@ -204,8 +200,9 @@ def _search_subset(m: MapState | TrackView, frame: TrackFeatures,
                    pose: SE3, cam: atan.Camera, image_size, idx: Tensor,
                    active: Tensor, range_l0, subpix_its: int,
                    subpix_level3_only: bool,
-                   r_win: int) -> dict:
-    """Template warp + windowed ZMSSD + subpix for a subset of points."""
+                   r_win: int, bf16_cross: bool = False) -> dict:
+    """Template warp + windowed ZMSSD + subpix for a subset of points
+    (``bf16_cross``: ``ssd_search``'s)."""
     W, H = image_size
     pts_w = m.point_pos[idx]
     p_cam, z1, pix, proj_ok = _project_points(pose, pts_w, cam, image_size)
@@ -228,7 +225,7 @@ def _search_subset(m: MapState | TrackView, frame: TrackFeatures,
     bounds = torch.stack(levelops.level_bounds(level, H, W), dim=-1)
     res, win, win_origin = patchops.ssd_search(
         frame.atlas, frame.corner_mask, templates, centers, radius, bounds,
-        r_win=r_win, max_ssd=MAX_SSD)
+        r_win=r_win, max_ssd=MAX_SSD, bf16_cross=bf16_cross)
     found = attempted & res.found
 
     pos_atlas = res.pos
@@ -368,7 +365,8 @@ def track_map(m: MapState | TrackView, frame: TrackFeatures, pose: SE3,
     # to the skip branch's zeros.
     cres = _search_subset(m, frame, pose, cam, image_size, coarse_idx,
                           coarse_active, coarse_range, cfg.coarse_subpix_its,
-                          subpix_level3_only=False, r_win=R_WIN)
+                          subpix_level3_only=False, r_win=R_WIN,
+                          bf16_cross=cfg.zmssd_bf16_cross)
     for key in ("found", "attempted", "subpix"):
         cres[key] = cres[key] & do_coarse
     cres["pos_l0"] = torch.where(do_coarse, cres["pos_l0"], 0.0)
@@ -408,7 +406,7 @@ def track_map(m: MapState | TrackView, frame: TrackFeatures, pose: SE3,
     fres = _search_subset(m, frame, pose_after_coarse, cam, image_size,
                           fine_idx, fine_active, fine_range, subpix_its=8,
                           subpix_level3_only=not cfg.subpix_all,
-                          r_win=FINE_R_WIN)
+                          r_win=FINE_R_WIN, bf16_cross=cfg.zmssd_bf16_cross)
 
     # ---- combined GN over coarse + fine measurements ----
     def both(key):

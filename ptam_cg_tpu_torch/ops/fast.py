@@ -16,7 +16,7 @@ from typing import NamedTuple
 import torch
 
 from ptam_cg_tpu_torch.kernels.fast import (  # noqa: F401
-    ARC, CIRCLE, fast_atlas, fast_score_map_plain)
+    ARC, CIRCLE, fast_atlas, fast_image, fast_score_map_plain)
 
 Tensor = torch.Tensor
 
@@ -88,3 +88,14 @@ def corners_from_mask(mask: Tensor, score: Tensor, max_n: int,
     xy = torch.where(valid[:, None], xy, -1)
     return Corners(xy=xy, score=torch.where(valid, vals, 0.0), valid=valid,
                    count=torch.sum(valid.to(torch.int32)))
+
+
+def detect(im: Tensor, threshold: float, max_corners: int,
+           nonmax: bool = True) -> tuple:
+    """Full detection on one image: (corner mask, score map, Corners),
+    FAST-10 through K1 (``fast_image``). With ``nonmax`` the mask and list
+    are non-max suppressed (MakeKeyFrame_Rest, ref: src/KeyFrame.cc:64-66);
+    without, the raw corners (MakeKeyFrame_Lite, src/KeyFrame.cc:35-42)."""
+    is_corner, score = fast_image(im, threshold)
+    keep = nonmax_3x3(score) & is_corner if nonmax else is_corner
+    return keep, score, corners_from_mask(keep, score, max_corners)

@@ -92,6 +92,11 @@ def central_gradients(im: Tensor) -> tuple:
     return gx, gy
 
 
+def zero_mean(im: Tensor) -> Tensor:
+    """``im`` less its mean over the last two dims."""
+    return im - torch.mean(im, dim=(-2, -1), keepdim=True)
+
+
 def bilinear_sample(im: Tensor, xy: Tensor, pad_value: float = 0.0):
     """Bilinear interpolation of ``im`` (H, W) at the (x, y) pixel points
     ``xy`` (..., 2). Returns (values, valid): valid marks samples whose

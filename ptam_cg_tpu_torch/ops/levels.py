@@ -77,6 +77,15 @@ def pack_atlas(pyramid: Sequence[Tensor]) -> Tensor:
     return A
 
 
+def build_atlas(im: Tensor) -> Tensor:
+    """Level-0 image -> packed pyramid atlas (MakeKeyFrame_Lite's
+    pyramid, ref: src/KeyFrame.cc:23-33)."""
+    # Imported here: ops.image imports the kernels, which import this
+    # module.
+    from ptam_cg_tpu_torch.ops import image as imops
+    return pack_atlas(imops.build_pyramid(im, LEVELS))
+
+
 def unpack_level(atlas: Tensor, level: int, h: int, w: int) -> Tensor:
     r, c = level_offsets(h, w)[level]
     return atlas[r: r + (h >> level), c: c + (w >> level)]

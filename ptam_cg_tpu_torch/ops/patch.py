@@ -7,7 +7,9 @@
    one-hot matmuls; the window gate ``in_win`` it implies is kept, since
    it changes which points are attempted.
 3. ``ssd_search``: dense windowed ZMSSD over (2r+1)^2 candidates from one
-   image window and one corner-mask window per point (one K2 launch).
+   image window and one corner-mask window per point (one K2 launch);
+   with ``bf16_cross`` the cross term reads the templates and windows
+   rounded to bfloat16 (``TrackerConfig.zmssd_bf16_cross``).
 4. ``subpix_refine``: inverse-composition refinement on the search
    windows, or on windows it gathers from the atlas (K2), re-based with a
    direct indexed load (the JAX package uses a
@@ -180,12 +182,20 @@ def _integral_window_sums(win: Tensor, patch_size: int) -> Tensor:
 def ssd_search(atlas: Tensor, corner_mask: Tensor, templates: Tensor,
                centers: Tensor, radius: Tensor, bounds: Tensor, *,
                r_win: int, max_ssd: float, zero_mean: bool = True,
-               patch_size: int = PATCH_SIZE):
+               patch_size: int = PATCH_SIZE, bf16_cross: bool = False):
     """Batched windowed ZMSSD search (ZMSSDAtPoint's formula), or with
     ``zero_mean`` False the plain SSD (the MiniPatch search of trail
-    tracking).
+    tracking). With ``bf16_cross`` the cross term reads the templates and
+    windows rounded to bfloat16 and sums their products in float32 in the
+    JAX package's order; the other terms read them in float32. A product
+    of two bfloat16 values is exact in float32, and the JAX package's
+    compiled programs keep it so (XLA drops the bfloat16 rounding of the
+    product it writes, under its default ``xla_allow_excess_precision``);
+    its op-by-op ``ssd_search(bf16_cross=True)`` rounds each product to
+    bfloat16 and parts from both by up to ~1e3 in ZMSSD.
 
-    atlas (Ha, Wa) f32; corner_mask (Ha, Wa) bool; templates (N, P, P);
+    atlas (Ha, Wa) f32 or bf16 (K2 gives f32 windows of either);
+    corner_mask (Ha, Wa) bool; templates (N, P, P);
     centers (N, 2) predicted atlas positions; radius (N,) search radius in
     level pixels (at most ``r_win``; the tracker validates its config);
     bounds (N, 4) level rect per point. Returns (SearchResult, windows
@@ -208,11 +218,15 @@ def ssd_search(atlas: Tensor, corner_mask: Tensor, templates: Tensor,
 
     SSQ_t = torch.sum(templates * templates, dim=(-2, -1))
     SSQ_img = _integral_window_sums(win * win, P)
-    cross = torch.zeros((N, M, M), dtype=win.dtype, device=dev)
+    t, w = templates, win
+    if bf16_cross:
+        t = t.to(torch.bfloat16).to(torch.float32)
+        w = w.to(torch.bfloat16).to(torch.float32)
+    cross = torch.zeros((N, M, M), dtype=torch.float32, device=dev)
     for dy in range(P):
         for dx in range(P):
-            cross = cross + (templates[:, dy, dx][:, None, None]
-                             * win[:, dy: dy + M, dx: dx + M])
+            cross = cross + (t[:, dy, dx][:, None, None]
+                             * w[:, dy: dy + M, dx: dx + M])
     if zero_mean:
         SA = torch.sum(templates, dim=(-2, -1))[:, None, None]
         S_img = _integral_window_sums(win, P)

@@ -215,3 +215,43 @@ def rot_from_quat(q: Tensor) -> Tensor:
         torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
                      1 - 2 * (x * x + y * y)], dim=-1),
     ], dim=-2)
+
+
+def euler_from_rot(R: Tensor) -> Tensor:
+    """Rotation matrix -> XYZ Euler angles [roll, pitch, yaw]; near the
+    singular pitch (cos pitch < 1e-6) yaw is 0 and roll takes the rest."""
+    R = torch.as_tensor(R, dtype=torch.float32)
+    sy = torch.sqrt(R[..., 0, 0] ** 2 + R[..., 1, 0] ** 2)
+    singular = sy < 1e-6
+    roll = torch.where(singular, torch.atan2(-R[..., 1, 2], R[..., 1, 1]),
+                       torch.atan2(R[..., 2, 1], R[..., 2, 2]))
+    pitch = torch.atan2(-R[..., 2, 0], sy)
+    yaw = torch.where(singular, torch.zeros_like(sy),
+                      torch.atan2(R[..., 1, 0], R[..., 0, 0]))
+    return torch.stack([roll, pitch, yaw], dim=-1)
+
+
+def rot_from_euler(rpy: Tensor) -> Tensor:
+    """XYZ Euler angles [roll, pitch, yaw] -> rotation matrix Rz Ry Rx."""
+    rpy = torch.as_tensor(rpy, dtype=torch.float32)
+    r, p, y = rpy[..., 0], rpy[..., 1], rpy[..., 2]
+    cr, sr = torch.cos(r), torch.sin(r)
+    cp, sp = torch.cos(p), torch.sin(p)
+    cy, sy = torch.cos(y), torch.sin(y)
+    return torch.stack([
+        torch.stack([cy * cp, cy * sp * sr - sy * cr,
+                     cy * sp * cr + sy * sr], dim=-1),
+        torch.stack([sy * cp, sy * sp * sr + cy * cr,
+                     sy * sp * cr - cy * sr], dim=-1),
+        torch.stack([-sp, cp * sr, cp * cr], dim=-1),
+    ], dim=-2)
+
+
+def lh_from_rh(T: SE3) -> SE3:
+    """Right-handed -> left-handed coordinates (cg::Tools::LHFromRH,
+    src/Tools.cc:6-21): conjugation by diag(1, 1, -1), which negates
+    R[2, 0:2], R[0:2, 2] and t[2]. Its own inverse; broadcasts over
+    batched poses."""
+    flip = torch.tensor([1.0, 1.0, -1.0], dtype=torch.float32,
+                        device=T.R.device)
+    return SE3(T.R * flip[:, None] * flip[None, :], T.t * flip)

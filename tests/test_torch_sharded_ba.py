@@ -13,7 +13,10 @@ bars): poses within 1e-4, points within 1e-3, the same measurements
 pruned; the ranks of a mesh end bit-identical. A checkpoint written on 4 ranks after one chunk
 resumes on 2 (elastic), and one written by JAX's ``compute_sharded``
 resumes in the port, both ending within the same bars of the
-uninterrupted run.
+uninterrupted run. The sharded step's stretches as graphs
+(``ShardedPrograms``, replayed as on the card through
+``torch_dist_worker.Emulated``) equal the eager stretches bit for bit, on
+2 gloo ranks and on a one-rank mesh.
 """
 
 import dataclasses
@@ -31,10 +34,12 @@ from ptam_cg_tpu_torch.config import BundleConfig, MapMakerConfig
 from ptam_cg_tpu_torch.camera import atan as tatan
 from ptam_cg_tpu_torch.io import from_jax as fj
 from ptam_cg_tpu_torch.models import bundle as tbundle
+from ptam_cg_tpu_torch.models import graphs
 from ptam_cg_tpu_torch.models import map_state as tms
 from ptam_cg_tpu_torch.models import mapmaker as tmm
 from ptam_cg_tpu_torch.parallel import mesh as meshlib
 from ptam_cg_tpu_torch.parallel import sharded_ba
+from ptam_cg_tpu_torch.utils.mest import TUKEY
 
 torch.set_num_threads(2)
 
@@ -87,6 +92,21 @@ def ranks(problems, jmesh, tmp_path_factory):
                              checkpoint_path=str(work / "jax_ckpt.npz"),
                              checkpoint_every=1)
     return tdw.launch("ba", 4, work, deadline_s=240.0)
+
+
+@pytest.fixture(scope="module")
+def graph_ranks(problems, tmp_path_factory):
+    """The ``ba_graphs`` scenario on 2 gloo ranks: cases A and B with the
+    sharded step's stretches as emulated graphs and eagerly."""
+    work = tmp_path_factory.mktemp("sharded_ba_graphs")
+    arrays = {}
+    for k in ("A", "B"):
+        arrays.update({f"{k}.{f}": v
+                       for f, v in _np_problem(problems[k][0]).items()})
+    cam = problems["A"][1]
+    np.savez(work / "inputs.npz", cam_params=np.asarray(cam.params),
+             image_size=np.array(SIZE), **arrays)
+    return tdw.launch("ba_graphs", 2, work, deadline_s=240.0)
 
 
 def _port_problem(prob):
@@ -281,3 +301,77 @@ def test_ba_problem_large_matches_jax():
     for f in ("cam_R", "cam_t", "pt_pos"):
         np.testing.assert_allclose(getattr(got, f).numpy(),
                                    np.asarray(getattr(want, f)), atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["A", "B"])
+def test_sharded_programs_equal_eager_on_two_ranks(case, graph_ranks):
+    """The sharded step's four stretches as graphs (``ShardedPrograms``,
+    replayed as the card replays them, ``graphs.emulate``) equal the
+    eager stretches bit for bit on each of 2 gloo ranks, which end
+    bit-identical."""
+    for res in graph_ranks:
+        for f in ("cam_R", "cam_t", "pt_pos", "meas_bad", "meas_valid",
+                  "flags"):
+            np.testing.assert_array_equal(res[f"{case}.graphed.{f}"],
+                                          res[f"{case}.eager.{f}"], f)
+        for f in ("cam_R", "cam_t", "pt_pos", "meas_bad", "flags"):
+            np.testing.assert_array_equal(res[f"{case}.graphed.{f}"],
+                                          graph_ranks[0][f"{case}.graphed."
+                                                         f"{f}"], f)
+    assert graph_ranks[0][f"{case}.graphed.flags"][0] > 0
+
+
+def test_sharded_programs_on_one_rank(problems, monkeypatch):
+    """A one-rank mesh: ``sharded_lm_chunk`` through ``ShardedPrograms``
+    (emulated graphs, then eager jobs on the same buffers) equals it
+    without programs bit for bit, chunk after chunk, on case A and then
+    on case B through the same programs (the same key, another
+    measurement layout, as a MapMaker's later BA run); the programs
+    capture each stretch once and a MapMaker keeps one set a key."""
+    monkeypatch.setattr(graphs, "Graph", tdw.Emulated)
+    monkeypatch.setattr(graphs, "on_card", lambda device, flag: flag)
+    one = meshlib.make_map_mesh(device="cpu")
+    cfg = BundleConfig()
+    starts, tcam = {}, None
+    for case in ("A", "B"):
+        prob, cam = problems[case]
+        tcam = fj.camera_from_numpy(fj.as_numpy_tree(cam), "cpu")
+        starts[case] = sharded_ba.init_sharded_lm(
+            sharded_ba.shard_problem(_port_problem(prob), one), one, cfg)
+    keys = {sharded_ba.ShardedPrograms.key_of(st, one, cfg, TUKEY)
+            for st in starts.values()}
+    assert len(keys) == 1
+    assert not torch.equal(starts["A"].layout.pt_rank,
+                           starts["B"].layout.pt_rank)
+    progs = {"none": None,
+             "graphed": sharded_ba.ShardedPrograms(starts["A"], one, tcam,
+                                                   cfg, TUKEY),
+             "eager": sharded_ba.ShardedPrograms(starts["A"], one, tcam, cfg,
+                                                 TUKEY, graphs_on=False)}
+    for case, start in starts.items():
+        runs = {}
+        for key, prog in progs.items():
+            st, f, flags = start, tbundle.INIT_FLAGS, []
+            for limit in (1, 3, 8):
+                st, f = sharded_ba.sharded_lm_chunk(st, one, tcam, cfg,
+                                                    TUKEY, limit, f, prog)
+                flags.append(f)
+            runs[key] = (st, flags)
+            if prog is not None:
+                assert prog.graphs == (key == "graphed")
+                assert sorted(prog.jobs) == ["accumulate", "schur",
+                                             "sigma", "trial"]
+                if prog.graphs:
+                    assert len(prog.captures) == 4
+        for key in ("graphed", "eager"):
+            assert runs[key][1] == runs["none"][1], (case, key)
+            for f in ("cam_R", "cam_t", "pt_pos", "meas_bad"):
+                assert torch.equal(getattr(runs[key][0].problem, f),
+                                   getattr(runs["none"][0].problem, f)), (
+                    case, key, f)
+    start = starts["B"]
+    m = tms.empty_map(SIZE, max_points=64, max_kfs=4, device="cpu")
+    progs = tmm.MapPrograms(m, tcam, SIZE, MapMakerConfig(), TUKEY, True)
+    a = progs.sharded(start, one, cfg)
+    assert progs.sharded(start, one, cfg) is a and a.graphs
+    assert a.captures is progs.captures

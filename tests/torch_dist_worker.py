@@ -148,6 +148,59 @@ def scenario_ba(rank, world, workdir, out):
     out["hybrid_grid"] = hm.grid
 
 
+class Emulated:
+    """``graphs.Graph`` on the CPU (tests/test_torch_map_programs.py's
+    ``_Emulated``): the warm-up on clones of the inputs, then each replay
+    runs the function on its capture's path (``graphs.emulate``) and copies
+    the outputs into the first replay's, as a graph's are overwritten."""
+
+    def __init__(self, fn, inputs, debug_path=None, pool=None):
+        from ptam_cg_tpu_torch.models import graphs
+        with graphs.warm():
+            fn(*graphs.clone(inputs))
+        self.fn, self.inputs, self.outputs = fn, inputs, None
+        self.capture_s, self.launches, self.n_if = 0.0, {}, 0
+
+    def replay(self, name=None):
+        from ptam_cg_tpu_torch.models import graphs
+        with graphs.emulate():
+            out = self.fn(*self.inputs)
+        if self.outputs is None:
+            self.outputs = out
+        for buf, x in zip(graphs.tree.tensors(self.outputs),
+                          graphs.tree.tensors(out)):
+            if buf is not x:
+                buf.copy_(x)
+        return self.outputs
+
+
+def emulate_graphs():
+    """Programs asked for as graphs take the graph path on the CPU."""
+    from ptam_cg_tpu_torch.models import graphs
+    graphs.Graph = Emulated
+    graphs.on_card = lambda device, flag: flag
+
+
+def scenario_ba_graphs(rank, world, workdir, out):
+    """Cases A and B of the ``ba`` scenario on the ranks, with the sharded
+    step's stretches as emulated graphs (``ShardedPrograms``) and eagerly;
+    and case B's first chunk through a MapMaker-style cache."""
+    from ptam_cg_tpu_torch.camera import atan
+    from ptam_cg_tpu_torch.parallel import mesh as meshlib
+    from ptam_cg_tpu_torch.parallel import sharded_ba
+
+    data = np.load(Path(workdir) / "inputs.npz")
+    cam = atan.make_camera(tuple(data["cam_params"]),
+                           tuple(int(v) for v in data["image_size"]), "cpu")
+    mesh = meshlib.make_map_mesh(device="cpu")
+    emulate_graphs()
+    for case in ("A", "B"):
+        for key, on in (("graphed", True), ("eager", False)):
+            st, n = sharded_ba.compute_sharded(_problem(data, case), mesh,
+                                               cam, graphs=on)
+            _save_state(out, f"{case}.{key}", st, n)
+
+
 class ReplayDraws:
     """The draws a reference run recorded (``draws.npz``: ``k<i>.<kind>``
     in call order), handed out in the same order; a call of another kind
@@ -243,8 +296,8 @@ def main():
     assert meshlib.initialize_distributed(
         f"127.0.0.1:{port}", world, rank, backend="gloo", timeout_s=120.0)
     out = {}
-    {"ba": scenario_ba, "engine": scenario_engine}[scenario](
-        rank, world, workdir, out)
+    {"ba": scenario_ba, "ba_graphs": scenario_ba_graphs,
+     "engine": scenario_engine}[scenario](rank, world, workdir, out)
     torch.distributed.barrier()
     np.savez(Path(workdir) / f"{scenario}_rank{rank}.npz", **out)
     torch.distributed.destroy_process_group()
