@@ -119,21 +119,32 @@ Phases, each fatal on failure:
    its MapMaker's as CUDA graphs (phases 17-18): 11a deterministic, 11b
    card against CPU, 11c the card's latency mode (frame latency, FPS,
    host reads, busy share; then the same frames with the MapMaker's
-   programs run eagerly, and with every program run eagerly, p50, p95,
-   max and FPS beside the graphed ones), 11d relocalization (each also
-   run eagerly on its inputs) and the poisoned-map reset, 11e
+   programs run eagerly, and the first ``ENG_ALL_EAGER`` with every
+   program run eagerly, p50, p95, max and FPS beside the graphed ones), 11d relocalization (each also
+   run eagerly on its inputs) and the poisoned-map reset (also with the
+   MapMaker's programs eager; the captures after the reset, none of them
+   a chunk graph of a key captured before it: the engine keeps its chunk
+   programs across a reset), 11e
    tests/test_slam_e2e.py's orbit at its pace, where integrations add
    points, card against CPU, and the card with the MapMaker's programs
-   eager (equal in outcome);
+   eager (equal in outcome). 11c, 11d and 12 print the default
+   engine's p50, p95, max and FPS beside ``MapMaker(graphs=False)``'s and
+   beside the numbers PERF.md records from before frames stopped waiting
+   for the worker's captures (``BEFORE``); every engine outcome's digest
+   (``outcome_digest``) compares runs frame for frame;
 12. the engine with its mapping worker (``async_mapping=True``) on the
    same frames in latency mode: the bars of tests/test_async_mapping.py
    and the e2e's ATE, its latency, FPS, mapping passes, map copies (and
    one copy's device time) and busy share beside 11c's, and the kernels'
    launches by CUDA stream (K2's integration launches on the mapping
-   stream, the rest on the tracking thread's), then the programs run
-   eagerly beside; 12b: 11e's orbit with the worker (the map grows), a
-   reset while a pass is in flight (the map stays empty until the next
-   init) and ``close()`` within 10 s;
+   stream, the rest on the tracking thread's), each capture the worker
+   made (label, seconds) with the latencies of the tracked frames it
+   overlapped that capture nothing themselves (a capture of
+   ``CAPTURE_HOLD_S`` or more must outlast every one: no frame waits for
+   it), then the programs run eagerly beside;
+   12b: 11e's orbit with the worker (the map grows), a reset while a
+   pass is in flight (the map stays empty until the next init) and
+   ``close()`` within 10 s;
 13. the dataset entry point: 11e's first 60 frames written as a TUM
    dataset (``io/tum.py``), read by the native frame pump (each frame
    equal to its file), and ``apps.run_tum`` with ``--native``, a settings
@@ -197,10 +208,13 @@ Phases, each fatal on failure:
    (sync debug mode). Each program's capture s, nodes and conditional
    nodes (its dump), a replay's ms by CUDA events and the host clock and
    device us, the eager call's beside; each MapMaker's captures and
-   memory pool.
+   memory pool; and two LM chunk graphs captured at once on two threads
+   (as the engine's two threads may), each replay equal to the eager
+   chunk bit for bit.
    11c, 11e and 12 also run the engine with ``MapMaker(graphs=False)``
-   (and 11c, 12 with every program eager): p50, p95, max, keyframe frames
-   and FPS beside the graphed run's; 11e's MapMaker runs equal in
+   (and 11c, 12 with every program eager, on their first
+   ``ENG_ALL_EAGER`` frames): p50, p95, max, keyframe frames and FPS
+   beside the graphed run's; 11e's MapMaker runs equal in
    outcome;
 19. the bf16 frontend configuration (``FrontendConfig(atlas_bf16=True)``,
    ``TrackerConfig(zmssd_bf16_cross=True)``): K2's bf16-source
@@ -324,6 +338,24 @@ CALIB_GRID_TOL = 1e-3
 CALIB_PARAM_TOL = 1e-4
 NONPLANAR_FRAMES = 60
 ENG_SYNC = 10        # 11c: the frames before them, under sync debug mode
+#: 11c, 12: the frames the engine with every program eager runs (the
+#: first ones; its host-bound frames make it the slowest variant).
+ENG_ALL_EAGER = 100
+#: 12: a worker capture at least this long (s) must outlast every tracked
+#: frame it overlapped (a frame that waited for it would last as long),
+#: but the init frame and a frame that captures a program of its own;
+#: shorter ones are printed only, since a frame outlasts them either way.
+CAPTURE_HOLD_S = 0.1
+#: The engine's numbers as PERF.md section 5 records them from its run
+#: "f2" (one H100 80GB HBM3 at 700.00 W), made while a tracked frame
+#: waited for the mapping worker's captures: (p50 ms, p95 ms, max ms,
+#: FPS), None where not recorded; the default engine and
+#: ``MapMaker(graphs=False)``.
+BEFORE = {"11c": {"default": (22.4, 41.6, 1319.0, 24.86),
+                  "MapMaker eager": (20.4, 48.2, 641.3, 33.50)},
+          "11d": {"default": None, "MapMaker eager": None},
+          "12": {"default": (24.5, 47.1, None, 14.77),
+                 "MapMaker eager": (32.0, 44.9, None, 26.78)}}
 ENG_CPU1 = 16        # 11b: frames the CPU runs on one thread (the spread)
 # 11b: card against CPU, each frame's rotation and translation over |t|
 # on the init frame (the scale is free): ~3x the larger of the measured
@@ -1239,6 +1271,34 @@ class CallCounts:
                                    - self.replays_mapping.get(name, 0))
 
 
+class CaptureLog:
+    """Every program capture (``graphs.Program.capture``) while active, in
+    ``caps``: label, thread, host-clock start and end of the whole call
+    (warm-up and capture), and the Graph's ``warm_s`` and ``capture_s``."""
+
+    def __enter__(self):
+        from ptam_cg_tpu_torch.models import graphs
+        self.graphs, self.caps = graphs, []
+        self.capture = graphs.Program.capture
+        capture, caps = self.capture, self.caps
+
+        def logged(prog):
+            if prog.graph is not None:
+                return capture(prog)
+            t0 = time.perf_counter()
+            capture(prog)
+            caps.append(dict(
+                label=getattr(prog, "label", None) or type(prog).__name__,
+                thread=threading.current_thread().name, t0=t0,
+                t1=time.perf_counter(), warm_s=prog.graph.warm_s,
+                capture_s=prog.graph.capture_s))
+        graphs.Program.capture = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.graphs.Program.capture = self.capture
+
+
 MAPMAKER_JOBS = ("integrations", "points integrated", "local BA",
                  "global BA", "new-point re-finds",
                  "re-finds of integrated points", "failure-queue re-finds",
@@ -1297,6 +1357,20 @@ def watch_mapmaker(mm, jobs):
     starts("handle_bad_points", "GC runs", lambda: mm._map_dirty)
 
 
+def outcome_digest(infos):
+    """A hash of every frame's outcome (stage, quality, found, points,
+    keyframes, keyframe added, relocalized) and pose bytes: two runs with
+    the same digest agree frame for frame, bit for bit."""
+    import hashlib
+    h = hashlib.sha256()
+    for i in infos:
+        h.update(repr((i.stage, i.quality, i.n_found, i.n_points, i.n_kfs,
+                       i.added_kf, i.relocalized)).encode())
+        h.update(i.pose.R.cpu().numpy().tobytes())
+        h.update(i.pose.t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def engine_outcome(infos, seq, torch, tag):
     """11a's bars on a run's FrameInfos: init by frame 10, at least 80%
     of the tracked frames GOOD and more than 30 found after the first,
@@ -1326,7 +1400,8 @@ def engine_outcome(infos, seq, torch, tag):
           f"added, {infos[-1].n_kfs} in the map, {infos[-1].n_points} "
           f"points; relocalized on {sum(i.relocalized for i in infos)} "
           f"frames; ATE {ate:.3e} after Sim(3) alignment, trajectory span "
-          f"{span:.4f} ({ate / max(span, 0.1) * 100:.3f}%)")
+          f"{span:.4f} ({ate / max(span, 0.1) * 100:.3f}%); outcome digest "
+          f"{outcome_digest(infos)}")
     check(good >= 0.8 * len(tracked), f"{tag}: under 80% of frames GOOD")
     check(not bad_found, f"{tag}: frames with 30 or fewer found: {bad_found}")
     check(n_added > 0, f"{tag}: no keyframe added")
@@ -1386,7 +1461,9 @@ def print_variants(phase, what, variants, card):
     for tag, v in variants.items():
         kf = [t for _, t in v["kf_frames"]]
         kf_med = f"{statistics.median(kf):.1f} ms" if kf else "none"
-        print(f"[{phase}] {tag}, {what}: p50 {v['p50']:.1f} ms, p95 "
+        on = (what if "frames" not in v
+              else f"{what.split('frames')[0]}frames 0..{v['frames'] - 1}")
+        print(f"[{phase}] {tag}, {on}: p50 {v['p50']:.1f} ms, p95 "
               f"{v['p95']:.1f} ms, max {v['max']:.1f} ms over {v['n']} "
               f"frames; {len(kf)} keyframe frames, median {kf_med}; "
               f"{v['fps']:.2f} FPS  [{card}]")
@@ -1446,16 +1523,45 @@ def compare_relocs(eng, torch):
     return found
 
 
-def run(eng, ims, times=None):
+def run(eng, ims, times=None, spans=None):
     """Each frame's FrameInfo; ``times`` gets each ``process_frame``'s
-    return time on the host clock (no sync, as bench_engine.py)."""
+    return time on the host clock (no sync, as bench_engine.py), and
+    ``spans`` its (start, end) on that clock."""
     infos = []
     for im in ims:
         t0 = time.perf_counter()
         infos.append(eng.process_frame(im))
+        t1 = time.perf_counter()
         if times is not None:
-            times.append(time.perf_counter() - t0)
+            times.append(t1 - t0)
+        if spans is not None:
+            spans.append((t0, t1))
     return infos
+
+
+def print_before(phase, variants, card):
+    """One line: the default engine's p50, p95, max and FPS beside
+    ``MapMaker(graphs=False)``'s in this run and beside ``BEFORE``."""
+    def fmt(v):
+        if v is None:
+            return "not recorded"
+        return ", ".join("-" if x is None else f"{x:.{1 if i < 3 else 2}f}"
+                         for i, x in enumerate(v))
+    now = {tag: (v["p50"], v["p95"], v["max"], v["fps"])
+           for tag, v in variants.items()}
+    was = BEFORE[phase]
+    upto = ""
+    if "fps_frames" in variants["default"]:
+        upto = (f" (FPS to the last frame's result, the worker maybe still "
+                f"capturing: default "
+                f"{variants['default']['fps_frames']:.2f}, "
+                f"MapMaker(graphs=False) "
+                f"{variants['MapMaker eager']['fps_frames']:.2f})")
+    print(f"[{phase}] p50, p95, max ms, FPS: default {fmt(now['default'])}; "
+          f"MapMaker(graphs=False) {fmt(now['MapMaker eager'])}{upto}; as "
+          f"PERF.md records them from before frames stopped waiting for "
+          f"the worker's captures (run f2): default {fmt(was['default'])}, "
+          f"MapMaker(graphs=False) {fmt(was['MapMaker eager'])}  [{card}]")
 
 
 def engine(torch, dev, card, kernels, reset_counts, counts):
@@ -1616,9 +1722,10 @@ def engine(torch, dev, card, kernels, reset_counts, counts):
           f"(frame, ms) {c['kf_frames']}; {n_main / wall:.2f} FPS over all "
           f"{n_main} frames ({wall:.1f} s, one sync at the end); mapping "
           f"passes that found the card busy {busy} of {passes}  [{card}]")
-    print(f"[11c] host reads a tracked frame (sync debug mode), frames "
-          f"{n_main}..{n_main + ENG_SYNC - 1}: {[len(x) for x in syncs]}; "
-          f"where: {sorted(set(sum(syncs, [])))}")
+    print(f"[11c] host reads a tracked frame (sync debug mode, which does "
+          f"not report the info vector's read: a copy to pinned memory and "
+          f"an event wait), frames {n_main}..{n_main + ENG_SYNC - 1}: "
+          f"{[len(x) for x in syncs]}; where: {sorted(set(sum(syncs, [])))}")
     print(f"[11c] device busy share over frames {n_main + ENG_SYNC}.."
           f"{len(frames) - 1} (profiler): {busy_us / 1e3:.1f} ms of device "
           f"time in {prof_wall * 1e3:.1f} ms, "
@@ -1632,14 +1739,18 @@ def engine(torch, dev, card, kernels, reset_counts, counts):
     for tag, kw in (("MapMaker eager", dict(map_graphs=False)),
                     ("all eager", dict(graphs=False))):
         eng_v, times_v = make(dev, **kw), []
+        n_v = n_main if tag == "MapMaker eager" else ENG_ALL_EAGER
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lat_v = run(eng_v, frames[:n_main], times_v)
+        lat_v = run(eng_v, frames[:n_v], times_v)
         torch.cuda.synchronize()
         variants[tag] = latency_stats(lat_v, times_v)
-        variants[tag].update(fps=n_main / (time.perf_counter() - t0))
+        variants[tag].update(fps=n_v / (time.perf_counter() - t0),
+                             frames=n_v)
         engine_outcome(lat_v, seq, torch, f"11c {tag}")
     print_variants("11c", f"frames 0..{n_main - 1}", variants, card)
+    print_before("11c", {"default": c,
+                         "MapMaker eager": variants["MapMaker eager"]}, card)
 
     # ---- 11d. relocalization and reset (tests/test_engine_reloc.py) ----
     rseq = synth.SyntheticSequence(REF_PARAMS, image_size=SIZE, device=dev,
@@ -1671,26 +1782,45 @@ def engine(torch, dev, card, kernels, reset_counts, counts):
     check(relocalized and back[-1].quality == 2 and back[-1].n_found > 50,
           "11d: no relocalization back to GOOD within 8 frames")
     check(relocs, "11d: no relocalization ran")
-    eng = make(dev, cand_min=INIT_CAND_MIN, capacity=dict(
-        INIT_MAP, auto_init_frames=6, seed=0), deterministic=True)
-    info = run(eng, rframes[:10])[-1]
-    check(info.stage == "TRACKING", "11d: no init on the reset run")
-    m = eng.map
-    eng.map = eng.mapmaker.map = dataclasses.replace(m, meas_pos=torch.where(
-        m.meas_valid[..., None], torch.tensor(3e19, device=dev),
-        m.meas_pos))
-    eng.mapmaker.converged_recent, eng.mapmaker.converged_full = True, False
-    after = []
-    for im in rframes[10:]:
-        after.append(eng.process_frame(im))
-        if after[-1].stage == "NOT_STARTED":
-            break
+
+    def reset_run(map_graphs):
+        """Init, a poisoned map that BA ditches, and init again: the
+        FrameInfos and host-clock latencies of every frame, the run's
+        seconds, and the MapMakers before and after the reset."""
+        eng = make(dev, cand_min=INIT_CAND_MIN, capacity=dict(
+            INIT_MAP, auto_init_frames=6, seed=0), deterministic=True,
+            map_graphs=map_graphs)
+        times = []
+        t0 = time.perf_counter()
+        infos = run(eng, rframes[:10], times)
+        check(infos[-1].stage == "TRACKING", "11d: no init on the reset run")
+        m, old_mm = eng.map, eng.mapmaker
+        eng.map = eng.mapmaker.map = dataclasses.replace(
+            m, meas_pos=torch.where(m.meas_valid[..., None],
+                                    torch.tensor(3e19, device=dev),
+                                    m.meas_pos))
+        eng.mapmaker.converged_recent = True
+        eng.mapmaker.converged_full = False
+        after = []
+        for im in rframes[10:]:
+            after += run(eng, [im], times)
+            if after[-1].stage == "NOT_STARTED":
+                break
+        again = []
+        for im in rframes + rframes:
+            again += run(eng, [im], times)
+            if again[-1].stage == "TRACKING":
+                break
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return dict(eng=eng, infos=infos + after + again, after=after,
+                    again=again, times=times, wall=wall, old=old_mm)
+
+    runs = {tag: reset_run(tag == "default")
+            for tag in ("default", "MapMaker eager")}
+    r = runs["default"]
+    eng, after, again = r["eng"], r["after"], r["again"]
     reset = after[-1]
-    again = []
-    for im in rframes + rframes:
-        again.append(eng.process_frame(im))
-        if again[-1].stage == "TRACKING":
-            break
     print(f"[11d] poisoned meas_pos: stages after it "
           f"{[i.stage for i in after]} ({reset.n_points} points, "
           f"{reset.n_kfs} keyframes); re-initialized after {len(again)} "
@@ -1699,6 +1829,32 @@ def engine(torch, dev, card, kernels, reset_counts, counts):
           and reset.n_kfs == 0 and not eng.mapmaker.reset_requested,
           "11d: the poisoned map was not ditched")
     check(again[-1].stage == "TRACKING", "11d: no re-init after the reset")
+    e = runs["MapMaker eager"]
+    check([i.stage for i in e["after"] + e["again"]]
+          == [i.stage for i in after + again],
+          "11d: the eager MapMaker's reset run took other stages")
+    # The chunk graphs outlive the reset: the new MapMaker captures none
+    # of a key the old one captured.
+    seen = {lb for lb, _ in r["old"].programs.captures
+            if lb.startswith("lm_chunk")}
+    caps = eng.mapmaker.programs.captures
+    chunks = [lb for lb, _ in caps if lb.startswith("lm_chunk")]
+    print(f"[11d] captures after the reset: {len(caps)} "
+          f"({[lb for lb, _ in caps]}); chunk graphs {len(chunks)}, of "
+          f"keys captured before it "
+          f"{len([lb for lb in chunks if lb in seen])} (before it: "
+          f"{sorted(seen)}); the engine keeps "
+          f"{len(eng.chunk_programs.kept())} chunk programs  [{card}]")
+    check(seen and not [lb for lb in chunks if lb in seen],
+          "11d: a chunk graph of a key seen before the reset was captured "
+          "again")
+    variants = {}
+    for tag, x in runs.items():
+        variants[tag] = latency_stats(x["infos"], x["times"])
+        variants[tag].update(fps=len(x["times"]) / x["wall"])
+    print_variants("11d", f"the reset run ({len(r['times'])} frames)",
+                   variants, card)
+    print_before("11d", variants, card)
 
     # ---- 11e. the map grows while the camera tracks: card and CPU ----
     gseq = synth.SyntheticSequence(REF_PARAMS, image_size=SIZE, device=dev,
@@ -1866,8 +2022,15 @@ def async_engine(torch, dev, card, kernels, reset_counts, counts, mods, ph11):
     graphs.synchronize()
     reset_counts()
     t0 = time.perf_counter()
+    spans = []
     with CallCounts(ph11["targets"] + [(ms, "copy_map")]) as calls:
-        infos = run(eng, frames[:n_main], times)
+        with CaptureLog() as caplog:
+            infos = run(eng, frames[:n_main], times, spans)
+        # The last frame's results are ready when the tracking stream
+        # has run (a capture of the worker's may go on); then nothing
+        # is under way on the card.
+        torch.cuda.current_stream().synchronize()
+        frames_s = time.perf_counter() - t0
         graphs.synchronize()
         wall = time.perf_counter() - t0
         prof = profile(activities=[ProfilerActivity.CUDA])
@@ -1917,7 +2080,8 @@ def async_engine(torch, dev, card, kernels, reset_counts, counts, mods, ph11):
         kernels[name]["launches_by_stream_async"] = named[name]
     busy_us = sum(t for _, t, _ in device_rows(prof))
     a = latency_stats(infos, times)
-    a.update(fps=n_main / wall, busy=busy_us / 1e6 / prof_wall * 100)
+    a.update(fps=n_main / wall, fps_frames=n_main / frames_s,
+             busy=busy_us / 1e6 / prof_wall * 100)
     m = eng.snapshot()
     nbytes = sum(t.numel() * t.element_size() for t in
                  (getattr(m, f.name) for f in dataclasses.fields(m)))
@@ -1945,22 +2109,55 @@ def async_engine(torch, dev, card, kernels, reset_counts, counts, mods, ph11):
     async_outcome(infos, seq, torch, "12")
     print_captures("12", eng)
     check(close_s < 10.0, "12: close() did not join within 10 s")
+    # No tracked frame waits for a capture of the worker's. The init
+    # frame (stereo init and its BA, on this thread, before the worker
+    # starts) is not a tracked frame, and a frame that captures a program
+    # of its own (the first tracked frame its tracking program) lasts as
+    # long as that capture: neither is held to it.
+    first = [i.stage for i in infos].index("TRACKING")
+    own = [(c["t0"], c["t1"]) for c in caplog.caps
+           if c["thread"] != "mapping"]
+    held = []
+    for cap in caplog.caps:
+        if cap["thread"] != "mapping":
+            continue
+        length = cap["t1"] - cap["t0"]
+        over = [round((t1 - t0) * 1e3, 1) for k, (t0, t1) in enumerate(spans)
+                if k > first and t0 < cap["t1"] and t1 > cap["t0"]
+                and not any(t0 <= c0 and c1 <= t1 for c0, c1 in own)]
+        print(f"[12] worker capture {cap['label']}: {length:.3f} s (warm-up "
+              f"{cap['warm_s']:.3f} s, capture {cap['capture_s']:.3f} s); "
+              f"the tracked frames it overlapped, ms: {over}  [{card}]")
+        if length >= CAPTURE_HOLD_S and over and max(over) >= length * 1e3:
+            held.append((cap["label"], round(length, 3), max(over)))
+    check(not held, f"12: tracked frames as long as the worker capture they "
+          f"overlapped (label, s, longest frame ms): {held}")
     # The same frames with the MapMaker's programs run eagerly, and with
     # every program run eagerly, in this process.
     variants = {"graphed": a}
     for tag, kw in (("MapMaker eager", dict(map_graphs=False)),
                     ("all eager", dict(graphs=False))):
         eng_v, times_v = make(dev, async_mapping=True, **kw), []
+        n_v = n_main if tag == "MapMaker eager" else ENG_ALL_EAGER
         graphs.synchronize()
         t0 = time.perf_counter()
-        infos_v = run(eng_v, frames[:n_main], times_v)
+        infos_v = run(eng_v, frames[:n_v], times_v)
+        torch.cuda.current_stream().synchronize()
+        frames_s = time.perf_counter() - t0
         graphs.synchronize()
         variants[tag] = latency_stats(infos_v, times_v)
-        variants[tag].update(fps=n_main / (time.perf_counter() - t0))
+        variants[tag].update(fps=n_v / (time.perf_counter() - t0),
+                             fps_frames=n_v / frames_s, frames=n_v)
         eng_v.close()
         async_outcome(infos_v, seq, torch, f"12 {tag}")
     print_variants("12", f"with the worker, frames 0..{n_main - 1}",
                    variants, card)
+    print_before("12", {"default": a,
+                        "MapMaker eager": variants["MapMaker eager"]}, card)
+    print(f"[12] FPS to the last frame's result (the tracking stream "
+          f"synced): " + ", ".join(f"{tag} {v['fps_frames']:.2f}"
+                                   for tag, v in variants.items())
+          + f"  [{card}]")
 
     # ---- 12b. 11e's orbit: integrations add points; a reset mid-pass ----
     gframes, gseq = ph11["gframes"], ph11["gseq"]
@@ -3270,6 +3467,45 @@ def map_programs_phase(torch, dev, card, mods, kernels, ph6, ph11):
                       restore, lambda start=start: start,
                       extra=f"; pool {graphs.pool_bytes(pool) / 2**20:.1f} "
                             f"MiB (all chunk graphs so far)")
+    # Two captures at once, each on a thread and a stream of its own (as
+    # the engine's tracking thread and its worker may capture): each
+    # graph's chunk equal to the eager chunk bit for bit.
+    pair, errors, both = [], [], threading.Barrier(2)
+
+    def capture_beside(tier, prob, cam_b):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                start = bundle.init_lm(prob, cfg)
+                prog = bundle.ChunkProgram(start, cam_b, cfg, kind, True,
+                                           pool=torch.cuda.graph_pool_handle())
+                both.wait(60.0)
+                t0 = time.perf_counter()
+                prog.capture()
+                t1 = time.perf_counter()
+                gs, fg = prog(start, 5, bundle.INIT_FLAGS)
+                es, fe = bundle.lm_chunk(start, cam_b, cfg, kind, 5,
+                                         bundle.INIT_FLAGS)
+                same = fg == fe and all(torch.equal(a, b) for a, b in zip(
+                    bundle._state_tensors(gs), bundle._state_tensors(es)))
+                pair.append((tier, t0, t1, prog.graph.capture_s, same))
+        except Exception as e:      # reported and checked below
+            errors.append((tier, repr(e)))
+            both.abort()
+    threads = [threading.Thread(target=capture_beside, args=x[:3],
+                                name=f"capture {x[0]}")
+               for x in problems[:2]]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300.0)
+    overlap = (min(x[2] for x in pair) - max(x[1] for x in pair)
+               if len(pair) == 2 else 0.0)
+    print(f"[18] two LM chunk graphs captured at once on two threads "
+          f"(tier, capture s, replay = eager bit for bit): "
+          f"{[(x[0], round(x[3], 3), x[4]) for x in pair]}; the two calls "
+          f"overlapped {overlap:.3f} s; errors {errors}  [{card}]")
+    check(not errors and len(pair) == 2 and all(x[4] for x in pair)
+          and overlap > 0, "18: two captures at once failed or differ")
     # The captures made and their pools.
     for tag, mm in makers:
         p = mm.programs

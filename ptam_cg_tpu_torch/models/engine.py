@@ -36,21 +36,24 @@ JAX engine's worker, which runs only when a frame wakes it, the port's
 also runs a pass every 50 ms while a keyframe waits or integrates, as
 the reference's mapping thread works on between frames: a run whose
 frames stop still integrates its last keyframes. On the card
-the worker issues its work on its own CUDA stream. Init captures the
-MapMaker's programs of fixed shapes (``MapMaker.capture_jobs``); when the
-worker captures one of the others (the first time a job runs at a BA
-tier or layout, or the first insert) the next frame waits for the
-capture to end (``graphs.wait_for_capture``):
-a capture beside a tracking thread took 8-10x its time alone on the
-H100's host (chip_smoke.py phase 12), and mapping fell behind. Each
-hand-off between the threads (the deltas, a queued keyframe, the map
-that init made, a published map) makes the consuming stream wait on an event
-recorded after the producer's work, and ``record_stream`` keeps the caching
-allocator from reusing a tensor's memory while the other stream may
-still read it. Unlike the JAX engine, a reset discards the publication
-of a pass in flight and the pending deltas (a generation counter), and
-an exception in the worker stops it and is raised by the next
-``process_frame`` or by ``close()``, which joins the worker.
+the worker issues its work on its own CUDA stream. The worker captures
+the MapMaker's programs of fixed shapes on its first pass
+(``MapMaker.capture_jobs``; the synchronous engine on the init frame),
+and the others as it meets them (the first time a job runs at a BA tier
+or layout, or the first insert); no frame waits for that, as no frame of
+the JAX engine waits for the mapping thread's compiles. A tracked frame's
+one host read goes through pinned memory and an event (``_read_info``): a
+pageable copy to the host held up the worker's CUDA calls, its captures'
+among them, for as long as it waited for the card
+(``profile_torch_captures.py``). Each hand-off between the threads (the
+deltas, a queued keyframe, the map that init made, a published map) makes
+the consuming stream wait on an event recorded after the producer's
+work, and ``record_stream`` keeps the caching allocator from reusing a
+tensor's memory while the other stream may still read it. Unlike the
+JAX engine, a reset discards the publication of a pass in flight and the
+pending deltas (a generation counter), and an exception in the worker
+stops it and is raised by the next ``process_frame`` or by ``close()``,
+which joins the worker.
 
 The JAX engine compiles its per-frame work into programs; the port runs
 the same three as CUDA graphs on the card (``models/programs.py``): a
@@ -96,7 +99,6 @@ import torch
 
 from ptam_cg_tpu_torch.camera import atan
 from ptam_cg_tpu_torch.config import EngineConfig
-from ptam_cg_tpu_torch.models import graphs
 from ptam_cg_tpu_torch.models import initializer as initlib
 from ptam_cg_tpu_torch.models import keyframe as kflib
 from ptam_cg_tpu_torch.models import map_state as ms
@@ -224,6 +226,11 @@ class SLAMEngine:
         #: The programs (``models/programs.py``) by kind: "track",
         #: "build", "reloc".
         self._programs = {}
+        #: BA's chunk programs, which every MapMaker of the engine uses,
+        #: so that a reset keeps them (``mapmaker.ChunkPrograms``).
+        self.chunk_programs = mmlib.ChunkPrograms()
+        #: Pinned memory for the info vector's host read (``_read_info``).
+        self._info_host = None
         self.image_size = tuple(image_size or cfg.camera.image_size)
         self.cam = atan.make_camera(cfg.camera.params, self.image_size,
                                     self.device)
@@ -246,6 +253,8 @@ class SLAMEngine:
                             else None)
         self._worker_error = None
         self._error_raised = False
+        #: The MapMaker whose fixed-shape jobs the worker has captured.
+        self._captured_for = None
         self._closed = False
         self._new_map()
         self._stop_mapping = threading.Event()
@@ -265,7 +274,8 @@ class SLAMEngine:
             self.map, self.cam, self.image_size, self.cfg.mapmaker,
             self.cfg.bundle, seed=self._seed,
             deterministic=self._deterministic, mesh=self.mesh,
-            mesh_axis=self.mesh_axis, graphs=self.graphs)
+            mesh_axis=self.mesh_axis, graphs=self.graphs,
+            chunk_programs=self.chunk_programs)
         self.stage = Stage.NOT_STARTED
         self.tracker_state = trklib.init_tracker_state(device=self.device)
         self.trails = None
@@ -341,6 +351,12 @@ class SLAMEngine:
             gen, mm, newest = self._generation, self.mapmaker, self.newest_kf
             published, deltas = self.map, self._pending_deltas
             self._pending_deltas = []
+        if mm is not self._captured_for:
+            # The jobs of fixed shapes, before the first job: captured
+            # here rather than on the init frame, since no frame waits
+            # for the worker.
+            mm.capture_jobs()
+            self._captured_for = mm
         if published is not self._published:
             mm.map = ms.copy_map(published)
         m = mm.map
@@ -428,8 +444,7 @@ class SLAMEngine:
 
     def _program(self, kind: str, frame_dtype=None) -> programs.Program:
         """The engine's ``kind`` program, a new one when what it bakes in
-        (``key_of``) changed. With the mapping worker, a program captures
-        under ``_map_lock``: no pass starts or publishes meanwhile."""
+        (``key_of``) changed."""
         cls = {"track": programs.TrackProgram,
                "build": programs.BuildProgram,
                "reloc": programs.RelocProgram}[kind]
@@ -443,17 +458,27 @@ class SLAMEngine:
         return prog
 
     def _run(self, prog: programs.Program, *args):
-        lock = (self._map_lock if self.async_mapping and prog.will_capture()
-                else contextlib.nullcontext())
-        with lock:
-            return prog(*args)
+        """Call one of the engine's programs (a replay on the card)."""
+        return prog(*args)
 
     def _build(self, im: Tensor) -> kflib.FrameFeatures:
         """The keyframe build of a frame (a copy of the features)."""
         return self._run(self._program("build", im.dtype), im)
 
     def _read_info(self, info: Tensor):
-        """The one host read of a tracked frame's decision scalars."""
+        """The one host read of a tracked frame's decision scalars. On the
+        card it goes through pinned memory and waits on an event: a
+        pageable copy (``tolist``) would hold up the mapping worker's CUDA
+        calls until the card reached it."""
+        if info.is_cuda:
+            if self._info_host is None:
+                self._info_host = torch.empty(info.shape, dtype=info.dtype,
+                                              pin_memory=True)
+            self._info_host.copy_(info, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+            info = self._info_host
         quality, lost, n_found, need_kf, n_points = info.tolist()
         self._last_quality, self._last_n_found = quality, n_found
         self._n_points_host = n_points
@@ -470,7 +495,6 @@ class SLAMEngine:
             self._raise_worker_error()
             if self._closed:
                 raise RuntimeError("process_frame: the engine is closed")
-            graphs.wait_for_capture()
         if not isinstance(im, Tensor):
             im = torch.from_numpy(np.ascontiguousarray(im))
         cfg = self.cfg
@@ -556,10 +580,11 @@ class SLAMEngine:
         self._n_points_host = int(torch.sum(
             self.map.point_valid.to(torch.int32)))
         self.mapmaker._n_points_hint = self._n_points_host
-        # The mapping jobs of fixed shapes are captured here, on the init
-        # frame, and not on the frames that first run them.
-        self.mapmaker.capture_jobs()
-        if self.async_mapping:
+        if not self.async_mapping:
+            # The mapping jobs of fixed shapes are captured here, on the
+            # init frame, and not on the frames that first run them.
+            self.mapmaker.capture_jobs()
+        else:
             # Tracking reads a copy; the MapMaker's own map goes on.
             mm = self.mapmaker
             self.map = self._published = ms.copy_map(mm.map)

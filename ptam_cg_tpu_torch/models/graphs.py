@@ -13,6 +13,19 @@ function runs eagerly on the same buffers and its outputs are copied into
 the first call's, so they are overwritten as a replay's are. A failed
 capture raises: nothing falls back to eager by itself.
 
+Captures on several threads run at once (the engine's tracking thread
+and its mapping worker each capture what they meet), each in its own
+memory pool, on streams of its own thread, and no thread waits for
+another's capture. What CUDA refuses while any stream captures is a
+device-wide sync: ``synchronize`` waits until no capture is under way.
+Work on the legacy default stream (the tracking thread's, by default)
+beside a capture is legal, since every stream that captures is created
+non-blocking. A graph shares its memory pool only with graphs that never
+run at the same time as it: the MapMaker's jobs share the MapMaker's
+pool, and BA's chunk programs, which outlive their MapMaker
+(``mapmaker.ChunkPrograms``), one pool for each thread that runs them,
+owned by their cache.
+
 Data-dependent control flow (JAX's ``lax.cond`` and ``while_loop``)
 becomes ``if_block`` and ``loop``: under a capture they open a CUDA IF
 or WHILE node (``csrc/graph_cond.cu``, built at the first capture) whose
@@ -56,9 +69,15 @@ Tensor = torch.Tensor
 
 _LOCAL = threading.local()
 _REPLAY_LOCK = threading.Lock()
-#: One capture at a time in the process: the engine's tracking thread and
-#: its mapping worker both capture.
+#: Guards the count of captures under way in the process (any thread);
+#: ``synchronize`` holds it across its device sync, so no capture starts
+#: meanwhile. A capture holds it only to count itself in and out.
 _CAPTURE_LOCK = threading.Lock()
+_CAPTURES_DONE = threading.Condition(_CAPTURE_LOCK)
+_under_way = 0
+#: Whether Python's cyclic GC was on when the first capture under way
+#: began (see ``_capture_under_way``).
+_gc_was_enabled = False
 #: Replays in this process, by the name of the function each replays (or
 #: each call a capture recorded with ``note_call``).
 replays: dict = {}
@@ -72,8 +91,8 @@ MAX_COUNTED_BODIES = 256
 
 #: The capture modes of ``cudaStreamCaptureMode``.
 _THREAD_LOCAL = 1
-#: Streams that capture conditional bodies, by device index: one a
-#: nesting depth.
+#: Streams that capture conditional bodies, by (device index, thread):
+#: one a nesting depth.
 _BODY_STREAMS: dict = {}
 _MAX_DEPTH = 4
 
@@ -97,9 +116,10 @@ def _cond_lib():
 
 def _body_streams(device: torch.device) -> list:
     """Streams of this process's own (not of PyTorch's pool, which other
-    threads' work shares) that capture conditional bodies, one a nesting
-    depth; made before a capture."""
-    streams = _BODY_STREAMS.get(device.index)
+    threads' work shares) that capture this thread's conditional bodies,
+    one a nesting depth; made before a capture."""
+    key = (device.index, threading.get_ident())
+    streams = _BODY_STREAMS.get(key)
     if streams is None:
         lib, streams = _cond_lib(), []
         with torch.cuda.device(device):
@@ -109,7 +129,7 @@ def _body_streams(device: torch.device) -> list:
                              "graph_cond_stream_create")
                 streams.append(torch.cuda.ExternalStream(h.value,
                                                          device=device))
-        _BODY_STREAMS[device.index] = streams
+        _BODY_STREAMS[key] = streams
     return streams
 
 
@@ -120,17 +140,27 @@ def on_card(device, graphs: bool) -> bool:
 
 
 @contextlib.contextmanager
-def _no_collection():
-    """No collection of Python's cyclic garbage until the end: one during
-    a capture may destroy an old CUDA graph, whose teardown a capturing
-    stream refuses (the capture then fails)."""
-    was = gc.isenabled()
-    gc.disable()
+def _capture_under_way():
+    """Count a capture in for ``synchronize`` (waiting out a sync in
+    progress) and out at the end; and no collection of Python's cyclic
+    garbage while any capture is under way: one may destroy an old CUDA
+    graph, whose teardown a capturing thread is refused (its capture then
+    fails)."""
+    global _under_way, _gc_was_enabled
+    with _CAPTURE_LOCK:
+        if _under_way == 0:
+            _gc_was_enabled = gc.isenabled()
+        gc.disable()
+        _under_way += 1
     try:
         yield
     finally:
-        if was:
-            gc.enable()
+        with _CAPTURE_LOCK:
+            _under_way -= 1
+            if _under_way == 0:
+                if _gc_was_enabled:
+                    gc.enable()
+                _CAPTURES_DONE.notify_all()
 
 
 def capturing() -> bool:
@@ -283,16 +313,17 @@ class Graph:
     inputs (the function may write its inputs), with every conditional
     body run once;
     its kernels launch and count as the caller's. Then the capture, with
-    ``capture_error_mode="thread_local"`` (another thread may launch on
-    its own stream meanwhile), records the kernels the wrappers launch;
-    ``replay`` runs the graph on the current stream and returns the
-    static outputs.
+    ``capture_error_mode="thread_local"`` (another thread may launch, and
+    capture, on its own streams meanwhile), records the kernels the
+    wrappers launch; ``replay`` runs the graph on the current stream and
+    returns the static outputs.
 
     ``inputs``: the static inputs, to fill before a replay.
-    ``capture_s``: seconds of the capture and the instantiation on the
-    host clock, warm-up apart. ``launches``: {kernel wrapper module or
-    function name: launches or calls a replay}, outside conditional
-    bodies; ``bodies``: the same for each conditional body that has any,
+    ``warm_s``: seconds of the warm-up on the host clock; ``capture_s``:
+    of the capture and the instantiation. ``launches``: {kernel wrapper
+    module or function name: launches or calls a replay}, outside
+    conditional bodies; ``bodies``: the same for each conditional body
+    that has any,
     and ``body_runs`` (int64 on the card) the times each body ran.
     ``n_if``, ``n_while``: IF and WHILE nodes. ``debug_path``: a file to
     write the captured graph to, as Graphviz DOT
@@ -304,32 +335,31 @@ class Graph:
                  pool=None):
         dev = next(tree.tensors(inputs)).device
         self.device, self.inputs = dev, inputs
-        with _CAPTURE_LOCK, _no_collection():
-            self._streams = _body_streams(dev)
-            caller = torch.cuda.current_stream(dev)
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(caller)
-            with _build.tally() as warm_tally, torch.cuda.stream(side), \
-                    warm():
-                fn(*clone(inputs))
-            caller.wait_stream(side)
-            # The warm-up's calls were counted as they ran.
-            _count({k: n for k, n in warm_tally.items()
-                    if not isinstance(k, str)}, caller.cuda_stream,
-                   threading.current_thread().name)
-            # A graph to dump is kept after its instantiation.
-            keep = debug_path is not None
-            self.graph = torch.cuda.CUDAGraph(keep_graph=keep)
-            self.body_runs = torch.zeros(MAX_COUNTED_BODIES,
-                                         dtype=torch.int64, device=dev)
-            self.bodies, self._open, self.n_if, self.n_while = [], [], 0, 0
-            self._thread_routed = False
-            # Conditional bodies allocate from the graph's pool: name it
-            # here (a graph's own pool id is not known until its capture
-            # ends).
-            self.pool = (torch.cuda.graph_pool_handle() if pool is None
-                         else pool)
-            t0 = time.perf_counter()
+        self._streams = _body_streams(dev)
+        caller = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(caller)
+        t0 = time.perf_counter()
+        with _build.tally() as warm_tally, torch.cuda.stream(side), warm():
+            fn(*clone(inputs))
+        caller.wait_stream(side)
+        self.warm_s = time.perf_counter() - t0
+        # The warm-up's calls were counted as they ran.
+        _count({k: n for k, n in warm_tally.items()
+                if not isinstance(k, str)}, caller.cuda_stream,
+               threading.current_thread().name)
+        # A graph to dump is kept after its instantiation.
+        keep = debug_path is not None
+        self.graph = torch.cuda.CUDAGraph(keep_graph=keep)
+        self.body_runs = torch.zeros(MAX_COUNTED_BODIES, dtype=torch.int64,
+                                     device=dev)
+        self.bodies, self._open, self.n_if, self.n_while = [], [], 0, 0
+        self._thread_routed = False
+        # Conditional bodies allocate from the graph's pool: name it here
+        # (a graph's own pool id is not known until its capture ends).
+        self.pool = torch.cuda.graph_pool_handle() if pool is None else pool
+        t0 = time.perf_counter()
+        with _capture_under_way():
             _LOCAL.graph = self
             try:
                 # ``torch.cuda.graph`` without its device sync and cache
@@ -345,11 +375,11 @@ class Graph:
                         self.graph.capture_end()
             finally:
                 _LOCAL.graph = None
-            if keep:
-                self.graph.instantiate()
-            self.capture_s = time.perf_counter() - t0
-            if keep:
-                self.graph.debug_dump(debug_path)
+        if keep:
+            self.graph.instantiate()
+        self.capture_s = time.perf_counter() - t0
+        if keep:
+            self.graph.debug_dump(debug_path)
         self._settled = [0] * len(self.bodies)
         self._where = None
         if self.bodies:
@@ -444,18 +474,14 @@ class Graph:
         self._settled = runs
 
 
-def wait_for_capture() -> None:
-    """Return once no capture is under way in the process."""
-    with _CAPTURE_LOCK:
-        pass
-
-
 def synchronize(device=None) -> None:
     """``torch.cuda.synchronize`` once no capture is under way in the
-    process: CUDA refuses a device-wide sync while any stream captures,
-    and the engine's mapping worker captures its programs as it meets
-    them. Sync a stream or an event instead where that will do."""
-    with _CAPTURE_LOCK:
+    process, and none starts until it returns: CUDA refuses a device-wide
+    sync while any stream captures, and the engine's threads capture their
+    programs as they meet them. Sync a stream or an event instead where
+    that will do (the engine's tracking path never calls this)."""
+    with _CAPTURES_DONE:
+        _CAPTURES_DONE.wait_for(lambda: _under_way == 0)
         torch.cuda.synchronize(device)
 
 

@@ -42,6 +42,7 @@ import collections
 import dataclasses
 import functools
 import os
+import threading
 import time
 import warnings
 
@@ -795,8 +796,88 @@ def apply_global_transform(m: MapState, T: SE3) -> MapState:
 # The MapMaker's programs (the JAX MapMaker's jitted jobs) as CUDA graphs
 # ---------------------------------------------------------------------------
 
-#: Chunk programs a MapMaker keeps (one per problem shape and layout).
+#: Chunk programs ``ChunkPrograms`` keeps for each thread (one per
+#: problem shape and layout).
 MAX_CHUNK_GRAPHS = 8
+
+
+class ChunkPrograms:
+    """BA's LM chunk programs (``bundle.ChunkProgram``: one per problem
+    shape, ``MeasLayout``, config, estimator and camera) and the
+    point-sharded step's (``sharded_ba.ShardedPrograms``: one per shard
+    shape, layout, config, estimator and mesh), kept apart from any one
+    MapMaker. The JAX package caches its chunk programs for the process
+    (``bundle._cached_lm_chunk``, ``sharded_ba.cached_sharded_lm_chunk``),
+    so a reset's new MapMaker compiles none again; an engine makes one
+    ``ChunkPrograms`` and hands it to each MapMaker it builds, whose
+    chunks then find the graphs of the keys seen before.
+
+    The programs are kept apart by the thread that calls them. A thread
+    calls its programs one at a time on its own stream, so no program's
+    static buffers take two calls at once, even when a reset leaves the
+    old MapMaker's pass running BA on the mapping worker while the new
+    MapMaker's init runs BA on the tracking thread. Each thread's chunk
+    graphs share a memory pool that the cache owns, so it outlives every
+    MapMaker (the sharded programs' graphs have pools of their own). The
+    last ``MAX_CHUNK_GRAPHS`` programs of each thread are kept."""
+
+    def __init__(self):
+        #: {thread ident: (memory pool, {key: program}, oldest first)}
+        self._threads = {}
+
+    def kept(self) -> collections.OrderedDict:
+        """This thread's programs by key, the last used last."""
+        return self._kept(None)[1]
+
+    def _kept(self, device):
+        kept = self._threads.get(threading.get_ident())
+        if kept is None:
+            pool = (torch.cuda.graph_pool_handle()
+                    if device is not None and device.type == "cuda"
+                    else None)
+            kept = self._threads[threading.get_ident()] = (
+                pool, collections.OrderedDict())
+        return kept
+
+    def _get(self, key, device, make):
+        pool, progs = self._kept(device)
+        prog = progs.get(key)
+        if prog is None:
+            prog = progs[key] = make(pool)
+            while len(progs) > MAX_CHUNK_GRAPHS:
+                progs.popitem(last=False)
+        progs.move_to_end(key)
+        return prog
+
+    def chunk(self, state: bundlelib.LMState, cam: atan.Camera,
+              ba_cfg: BundleConfig, kind: int, graphs_on: bool,
+              debug_dir: str | None = None) -> bundlelib.ChunkProgram:
+        """The chunk program of ``state``'s shape and layout under
+        ``ba_cfg``, ``kind`` and ``cam`` (a new one the first time)."""
+        key = bundlelib.ChunkProgram.key_of(state, ba_cfg, kind) + (id(cam),)
+        c, p, n_meas, n_pt, n_pair = key[:5]
+        label = f"lm_chunk_c{c}_p{p}_m{n_meas}_npt{n_pt}_npair{n_pair}"
+
+        def make(pool):
+            prog = bundlelib.ChunkProgram(
+                state, cam, ba_cfg, kind, graphs_on,
+                None if debug_dir is None
+                else os.path.join(debug_dir, f"{label}.dot"), pool)
+            prog.label = label
+            return prog
+        return self._get(key, state.problem.pt_pos.device, make)
+
+    def sharded(self, state: bundlelib.LMState, mesh, cam: atan.Camera,
+                ba_cfg: BundleConfig, kind: int, graphs_on: bool,
+                debug_dir: str | None = None) -> sharded_ba.ShardedPrograms:
+        """The sharded LM step's programs of ``state``'s shard shape and
+        layout under ``ba_cfg``, ``kind`` and ``cam`` on ``mesh``."""
+        key = ("sharded",) + sharded_ba.ShardedPrograms.key_of(
+            state, mesh, ba_cfg, kind) + (id(cam),)
+        return self._get(key, state.problem.pt_pos.device,
+                         lambda pool: sharded_ba.ShardedPrograms(
+                             state, mesh, cam, ba_cfg, kind, graphs_on,
+                             debug_dir))
 
 
 @dataclasses.dataclass
@@ -821,8 +902,9 @@ class MapPrograms:
     extraction and the write-back per BA tier, GC and the plane alignment;
     and BA's LM chunks (``bundle.ChunkProgram``, a graph per problem shape
     and layout; with a mesh, ``sharded_ba.ShardedPrograms``, four graphs
-    per shard shape and layout, their own memory pools; the last
-    ``MAX_CHUNK_GRAPHS`` of the two kept).
+    per shard shape and layout), which ``chunk_programs`` keeps
+    (``ChunkPrograms``: the engine's, which outlives the MapMaker, or one
+    of the MapMaker's own).
 
     The map (``map``), the failure and new-point masks and every job's
     other inputs are static buffers; each program writes its results into
@@ -832,11 +914,13 @@ class MapPrograms:
     in the order the scheduler calls them, and each one's results are read
     or copied before the next runs) and replayed after; otherwise it runs
     eagerly on the same buffers. ``captures``: (label, capture seconds) of
-    each capture. ``debug_dir``: where each graph's DOT dump goes."""
+    each capture the MapMaker made, its chunks' included. ``debug_dir``:
+    where each graph's DOT dump goes."""
 
     def __init__(self, m: MapState, cam: atan.Camera, image_size,
                  cfg: MapMakerConfig, kind: int, graphs_on: bool,
-                 debug_dir: str | None = None):
+                 debug_dir: str | None = None,
+                 chunk_programs: ChunkPrograms | None = None):
         dev = m.point_pos.device
         self.device = dev
         self.graphs = graphs.on_card(dev, graphs_on)
@@ -861,7 +945,8 @@ class MapPrograms:
         self.u = None               # the plane aligner's uniforms
         self.tiers = {}
         self.jobs = {}
-        self.chunks = collections.OrderedDict()
+        self.chunk_programs = (ChunkPrograms() if chunk_programs is None
+                               else chunk_programs)
         self.captures = []
 
     def _path(self, label: str):
@@ -895,42 +980,27 @@ class MapPrograms:
             job.capture()
             self.captures.append((label, job.graph.capture_s))
 
+    @property
+    def chunks(self) -> collections.OrderedDict:
+        """The chunk programs this thread has used, by key."""
+        return self.chunk_programs.kept()
+
     def chunk(self, state: bundlelib.LMState,
               ba_cfg: BundleConfig) -> bundlelib.ChunkProgram:
         """The chunk program of ``state``'s shape and layout under
         ``ba_cfg`` (the console may replace the MapMaker's)."""
-        key = bundlelib.ChunkProgram.key_of(state, ba_cfg, self.kind)
-        prog = self.chunks.get(key)
-        if prog is None:
-            c, p, n_meas, n_pt, n_pair = key[:5]
-            label = f"lm_chunk_c{c}_p{p}_m{n_meas}_npt{n_pt}_npair{n_pair}"
-            prog = bundlelib.ChunkProgram(state, self.cam, ba_cfg,
-                                          self.kind, self.graphs,
-                                          self._path(label), self.pool)
-            prog.label = label
-            self.chunks[key] = prog
-            while len(self.chunks) > MAX_CHUNK_GRAPHS:
-                self.chunks.popitem(last=False)
-        self.chunks.move_to_end(key)
-        return prog
+        return self.chunk_programs.chunk(state, self.cam, ba_cfg, self.kind,
+                                         self.graphs, self.debug_dir)
 
     def sharded(self, state: bundlelib.LMState, mesh,
                 ba_cfg: BundleConfig) -> sharded_ba.ShardedPrograms:
         """The sharded LM step's programs (``sharded_ba.ShardedPrograms``)
-        of ``state``'s shard shape and layout under ``ba_cfg``, kept with
-        the chunk programs; their captures are listed in ``captures``."""
-        key = ("sharded",) + sharded_ba.ShardedPrograms.key_of(
-            state, mesh, ba_cfg, self.kind)
-        prog = self.chunks.get(key)
-        if prog is None:
-            prog = sharded_ba.ShardedPrograms(state, mesh, self.cam, ba_cfg,
-                                              self.kind, self.graphs,
-                                              self.debug_dir)
-            prog.captures = self.captures
-            self.chunks[key] = prog
-            while len(self.chunks) > MAX_CHUNK_GRAPHS:
-                self.chunks.popitem(last=False)
-        self.chunks.move_to_end(key)
+        of ``state``'s shard shape and layout under ``ba_cfg``; the
+        captures they make for this MapMaker are listed in ``captures``."""
+        prog = self.chunk_programs.sharded(state, mesh, self.cam, ba_cfg,
+                                           self.kind, self.graphs,
+                                           self.debug_dir)
+        prog.captures = self.captures
         return prog
 
     def chunk_call(self, prog, state, iter_limit: int, f):
@@ -1110,6 +1180,9 @@ class MapMaker:
     ``map`` is then a map the MapMaker owns, and a caller that keeps a map
     past the next job copies it (``map_state.copy_map``).
     ``graph_debug_dir``: a directory for each graph's DOT dump.
+    ``chunk_programs``: the ``ChunkPrograms`` that keeps BA's chunk
+    programs (the engine passes its own, so that they outlive a reset;
+    default: one of the MapMaker's own).
 
     ``seed`` seeds ``generator``, a ``torch.Generator`` on the map's
     device, which draws the plane aligner's uniforms when the caller gives
@@ -1123,10 +1196,13 @@ class MapMaker:
                  max_ba_meas: int | None = None, seed: int = 0,
                  deterministic: bool | None = None, mesh=None,
                  mesh_axis: str = "mp", graphs: bool = True,
-                 graph_debug_dir: str | None = None):
+                 graph_debug_dir: str | None = None,
+                 chunk_programs: ChunkPrograms | None = None):
         self.map = m
         self.graphs = graphs
         self.graph_debug_dir = graph_debug_dir
+        self.chunk_programs = (ChunkPrograms() if chunk_programs is None
+                               else chunk_programs)
         self._progs = None
         self.cam = cam
         self.image_size = image_size
@@ -1230,7 +1306,8 @@ class MapMaker:
         if self._progs is None or self._progs_key != key:
             self._progs = MapPrograms(self.map, self.cam, self.image_size,
                                       self.cfg, self._kind, self.graphs,
-                                      self.graph_debug_dir)
+                                      self.graph_debug_dir,
+                                      self.chunk_programs)
             self._progs_key = key
         return self._progs
 

@@ -5,7 +5,9 @@
    keyframe atlas (kernel K2), then the 8x8 bilinear template read from
    it with direct 4-tap loads. The JAX package samples the window with
    one-hot matmuls; the window gate ``in_win`` it implies is kept, since
-   it changes which points are attempted.
+   it changes which points are attempted. ``make_warped_templates_flat``
+   is the JAX package's other formulation: four flat-index taps a sample
+   straight from the atlases, with no window and no window gate.
 3. ``ssd_search``: dense windowed ZMSSD over (2r+1)^2 candidates from one
    image window and one corner-mask window per point (one K2 launch);
    with ``bf16_cross`` the cross term reads the templates and windows
@@ -160,6 +162,36 @@ def make_warped_templates(kf_atlases: Tensor, kf_idx: Tensor,
               (pts[..., 1] <= src_bounds[:, None, 3] - 1.0))
     good = torch.all(inside & in_win, dim=-1)
     return vals.reshape(N, patch_size, patch_size), good
+
+
+def make_warped_templates_flat(kf_atlases: Tensor, kf_idx: Tensor,
+                               src_center: Tensor, m2: Tensor,
+                               src_bounds: Tensor,
+                               patch_size: int = PATCH_SIZE) -> tuple:
+    """The templates of ``make_warped_templates`` by four flat-index taps a
+    sample from the atlases (JAX's ``make_warped_templates_flat``, its
+    reference formulation): no window, so no window gate; a sample whose
+    corner leaves the atlas reads the clamped one. A bf16 atlas's taps
+    are weighted in float32. Returns (templates (N, P, P) float32, good
+    (N,))."""
+    offsets = _patch_grid(patch_size, src_center.device)      # (Q, 2)
+    pts = src_center[:, None, :] + torch.einsum("nij,pj->npi", m2, offsets)
+    K, Ha, Wa = kf_atlases.shape
+    flat = kf_atlases.reshape(-1)
+    x, y = pts[..., 0], pts[..., 1]
+    fx0, fy0 = torch.floor(x), torch.floor(y)
+    fx, fy = x - fx0, y - fy0
+    x0c = torch.clamp(fx0.to(torch.int64), 0, Wa - 2)
+    y0c = torch.clamp(fy0.to(torch.int64), 0, Ha - 2)
+    base = kf_idx.to(torch.int64)[:, None] * (Ha * Wa) + y0c * Wa + x0c
+    vals = (flat[base] * (1 - fx) * (1 - fy) + flat[base + 1] * fx * (1 - fy)
+            + flat[base + Wa] * (1 - fx) * fy
+            + flat[base + Wa + 1] * fx * fy)
+    inside = ((x >= src_bounds[:, None, 0]) & (y >= src_bounds[:, None, 1])
+              & (x <= src_bounds[:, None, 2] - 1.0)
+              & (y <= src_bounds[:, None, 3] - 1.0))
+    return (vals.to(torch.float32).reshape(-1, patch_size, patch_size),
+            torch.all(inside, dim=-1))
 
 
 @dataclasses.dataclass

@@ -36,6 +36,15 @@ class SE2:
     t: Tensor  # (2,)
 
 
+def se2_identity(device) -> SE2:
+    return SE2(torch.eye(2, dtype=torch.float32, device=device),
+               torch.zeros(2, dtype=torch.float32, device=device))
+
+
+def se2_mul(a: SE2, b: SE2) -> SE2:
+    return SE2(a.R @ b.R, a.R @ b.t + a.t)
+
+
 def make_sbi(level3: Tensor, blur: float = 2.5) -> SBI:
     """SBI from pyramid level 3: half-sample, subtract the mean, blur."""
     small = imops.half_sample(level3)

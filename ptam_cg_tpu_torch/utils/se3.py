@@ -166,6 +166,22 @@ def apply(T: SE3, x: Tensor) -> Tensor:
     return (T.R @ x[..., None])[..., 0] + T.t
 
 
+def generator_field(i: int, p: Tensor) -> Tensor:
+    """TooN's SE3::generator_field on homogeneous 4-vectors ``p`` (..., 4):
+    generator ``i`` (0-2 translation, 3-5 rotation about axis i - 3)
+    applied to each, with a zero w-component (include/Tracker.h:125-136,
+    src/Bundle.cc:296-307)."""
+    out = torch.zeros_like(p)
+    if i < 3:
+        out[..., i] = p[..., 3]
+        return out
+    j = i - 3
+    a, b = (j + 1) % 3, (j + 2) % 3
+    out[..., a] = -p[..., b]
+    out[..., b] = p[..., a]
+    return out
+
+
 def motion_jacobian(p_cam: Tensor) -> Tensor:
     """(..., 6, 3): d p_cam / d xi for each SE3 generator (left update
     ``exp(xi) * T``)."""

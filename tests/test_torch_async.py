@@ -15,7 +15,11 @@ on the same frames is the second witness and meets the same bars.
 Then what the JAX engine gets wrong and the port must not: a reset while
 a pass is in flight publishes nothing of it and drops the pending
 deltas; an exception in the worker is raised by the next
-``process_frame``, not only printed; ``close()`` joins the worker.
+``process_frame``, not only printed; ``close()`` joins the worker. And as
+the JAX engine, no tracked frame waits for a capture the worker has under
+way; and a reset keeps BA's chunk programs (JAX's chunk compiles are
+cached for the process): the MapMaker that a reset makes finds the
+program of a key seen before, and captures it no more.
 """
 
 import threading
@@ -27,7 +31,9 @@ import torch
 
 from ptam_cg_tpu_torch import config as tconfig
 from ptam_cg_tpu_torch.io import synth
+from ptam_cg_tpu_torch.models import bundle as tbundle
 from ptam_cg_tpu_torch.models import engine as tengine
+from ptam_cg_tpu_torch.models import graphs
 from ptam_cg_tpu_torch.utils import evaluate
 from ptam_cg_tpu_torch.utils.se3 import SE3
 
@@ -51,13 +57,14 @@ def frames(seq):
             for i in range(N_FRAMES)]
 
 
-def make_engine(async_mapping=True):
+def make_engine(async_mapping=True, **kw):
     cfg = tconfig.EngineConfig(
         camera=tconfig.CameraConfig(params=REF_PARAMS, image_size=SIZE),
         mapmaker=tconfig.MapMakerConfig(candidate_min_shi_tomasi_score=70.0))
     return tengine.SLAMEngine(cfg, image_size=SIZE, max_points=1024,
                               max_kfs=8, auto_init_frames=6, seed=0,
-                              device="cpu", async_mapping=async_mapping)
+                              device="cpu", async_mapping=async_mapping,
+                              **kw)
 
 
 def wait_for(cond, seconds=20.0):
@@ -206,3 +213,112 @@ def test_launch_counts_add_up_across_threads():
         sys.setswitchinterval(old)
     assert mod.launches == 16000
     assert mod.launches_by_stream == {s: 2000 for s in range(8)}
+
+
+def _infos_equal(a, b):
+    assert torch.equal(a.pose.R, b.pose.R) and torch.equal(a.pose.t, b.pose.t)
+    assert a._replace(pose=None) == b._replace(pose=None)
+
+
+@pytest.mark.parametrize("hold", ["capture lock", "capture under way"])
+def test_frame_does_not_wait_for_a_capture(frames, hold):
+    """A thread holds what a capture on the worker holds (the capture
+    lock, or a capture counted in for ``graphs.synchronize``) while the
+    engine takes its first tracked frame: the frame returns, and its
+    ``FrameInfo`` equals that of an engine nobody held up."""
+    free = make_engine()
+    try:
+        want = [free.process_frame(im) for im in frames[:8]]
+    finally:
+        free.close()
+    # Init on frame 6; frame 7 is the first tracked one.
+    assert want[5].stage != "TRACKING" and want[6].stage == "TRACKING"
+    eng = make_engine()
+    held, release = threading.Event(), threading.Event()
+
+    def holder():
+        ctx = (graphs._CAPTURE_LOCK if hold == "capture lock"
+               else graphs._capture_under_way())
+        with ctx:
+            held.set()
+            release.wait(30.0)
+    th = threading.Thread(target=holder)
+    got = []
+    frame = threading.Thread(
+        target=lambda: got.append(eng.process_frame(frames[7])))
+    try:
+        for im in frames[:7]:
+            got.append(eng.process_frame(im))
+        th.start()
+        assert held.wait(10.0)
+        frame.start()
+        frame.join(timeout=10.0)
+        returned = not frame.is_alive()
+    finally:
+        release.set()
+        th.join(timeout=10.0)
+        if frame.ident is not None:
+            frame.join(timeout=30.0)
+        eng.close()
+    assert returned, "the tracked frame waited for the capture"
+    assert not th.is_alive() and not frame.is_alive() and len(got) == 8
+    for a, b in zip(got, want):
+        _infos_equal(a, b)
+
+
+class _Emulated:
+    """``graphs.Graph`` on the CPU (tests/test_torch_map_programs.py's):
+    a warm-up on clones of the inputs, then each replay runs the function
+    on its capture's path."""
+
+    built = 0
+
+    def __init__(self, fn, inputs, debug_path=None, pool=None):
+        _Emulated.built += 1
+        with graphs.warm():
+            fn(*graphs.clone(inputs))
+        self.fn, self.inputs, self.outputs = fn, inputs, None
+        self.capture_s, self.launches, self.n_if = 0.0, {}, 0
+
+    def replay(self, name=None):
+        with graphs.emulate():
+            out = self.fn(*self.inputs)
+        if self.outputs is None:
+            self.outputs = out
+        for buf, x in zip(graphs.tree.tensors(self.outputs),
+                          graphs.tree.tensors(out)):
+            if buf is not x:
+                buf.copy_(x)
+        return self.outputs
+
+
+def test_chunk_programs_survive_reset(frames, monkeypatch):
+    """The engine's programs as graphs (emulated on the CPU): init's BA
+    builds and captures its chunk programs; after ``reset`` the same
+    frames initialize again, and the new MapMaker's BA finds the same
+    program objects for the same keys, building and capturing none."""
+    monkeypatch.setattr(graphs, "Graph", _Emulated)
+    monkeypatch.setattr(graphs, "on_card", lambda device, flag: flag)
+    built, chunk_init = [], tbundle.ChunkProgram.__init__
+
+    def counted(self, *a, **kw):
+        built.append(self)
+        chunk_init(self, *a, **kw)
+    monkeypatch.setattr(tbundle.ChunkProgram, "__init__", counted)
+    eng = make_engine(async_mapping=False)
+    infos = [eng.process_frame(im) for im in frames[:7]]
+    assert infos[-1].stage == "TRACKING"
+    first = dict(eng.mapmaker.programs.chunks)
+    assert first and all(p.graph is not None for p in first.values())
+    n_built = len(built)
+    old_mm = eng.mapmaker
+    eng.reset()
+    assert eng.mapmaker is not old_mm
+    infos = [eng.process_frame(im) for im in frames[:7]]
+    assert infos[-1].stage == "TRACKING"
+    again = eng.mapmaker.programs.chunks
+    assert set(again) == set(first)
+    assert all(again[k] is first[k] for k in first)
+    assert len(built) == n_built
+    assert not [lb for lb, _ in eng.mapmaker.programs.captures
+                if lb.startswith("lm_chunk")]
