@@ -11,7 +11,7 @@ GPU.
 itself.)
 
 Phases, each fatal on failure:
-1. device: the card's name and power limit; build the three CUDA kernels
+1. device: the card's name and power limit; build the five CUDA kernels
    (``ptam_cg_tpu_torch/csrc``) and phase 2c's variants of K3 with nvcc
    for sm_90a, one nvcc each, all at once;
 2. K1 (FAST-10) against its plain PyTorch version over the pyramid atlas
@@ -43,7 +43,20 @@ Phases, each fatal on failure:
 4. tracking: a 2048-point planar map, then ``track_frame_from_image`` on
    frames 1..60 of the sequence. Every frame must be GOOD, within 0.02 in
    camera centre and 0.01 rad in rotation, and the kernels' launch counts
-   must equal the calls the step makes times 60 (1 K1 and 4 K2 a frame);
+   must equal the calls the step makes times 60 (1 K1, 4 K2, 2 K4 and
+   1 K5 a frame);
+2d. (after phase 4, on its frames) K4 (the Gauss-Newton pose loop) and
+   K5 (the SBI ESM alignment) against their plain versions on the
+   inputs the step gives them on phase 4's 60 frames (rerun with the
+   same seed, each frame's start velocity above the coarse gate, as
+   phase 5's): K4's coarse call (N=128) and final call (N=1152), K5 on
+   each frame's and its predecessor's 30x40 SBIs. Bars: K4's pose within
+   1e-5, its weights within ``K4_W_TOL`` (scaled by 16 / sigma^2), equal
+   zero-weight sets but where the other run's weight is at most 1e-10
+   (err^2 within 1e-5 of sigma^2); K5's R and t within 1e-5 and score
+   within 1e-4 relative; two launches bit-identical; each printed
+   beside the measured differences, with the iterations K4 ran, device
+   us, the bound, CUDA-event ms and the plain version's ms;
 5. the same frame, uniforms and start state (with the coarse stage on)
    through the port on the card and on the CPU: the same found set up to
    differences traced to float noise (under 1% of found points), and a
@@ -167,7 +180,7 @@ Phases, each fatal on failure:
 15. the engine with a 2-rank mesh (gloo, both ranks on the card) on
    11e's orbit: the ranks' FrameInfos and launch counts identical,
    global BA sharded, the outcome equal to 11e's card run within its
-   bars, K1-K3's launches equal to those the calls make, a tracked
+   bars, K1-K5's launches equal to those the calls make, a tracked
    frame's p50 and p95 beside 11e's;
 16. ``apps.run_calib --synthetic 5`` at 640x480 on the card: RMS under
    0.3 px, the parameters within tests/test_calibrator.py's bars, the
@@ -182,7 +195,7 @@ Phases, each fatal on failure:
    new counts bit for bit, or within eager's own run-to-run spread,
    which is printed), the keyframe build on phase 6's keyframe frame
    (every field), the relocalizer on 11d's relocalizations; each graph
-   holds the K1-K3 launches its capture recorded (counted in its
+   holds the K1-K5 launches its capture recorded (counted in its
    Graphviz dump) and its capture called no plain version. Each
    program's capture s, graph nodes against an eager call's kernels, a
    replay's ms by CUDA events and by the host clock and device us, the
@@ -232,7 +245,7 @@ Phase 14 also runs the 2-rank ``compute_sharded`` with the sharded step's
 stretches eager (``graphs=False``): 14e, replay = eager bit for bit on
 each rank, chunk ms of both.
 The line before the last is a JSON summary of the kernels (numbers summed
-over a tracked frame's calls, K3's over a keyframe's; K2's bf16
+over a tracked frame's calls (K4's two), K3's over a keyframe's; K2's bf16
 instantiation as ``gather_windows_bf16``, its launches phase 19's;
 ``launches_by_stream_async``: phase 12's launches by CUDA stream); the
 last line is the JSON result. Times are medians of CUDA-event timings.
@@ -257,7 +270,7 @@ POSE_TOL = 1e-5
 POS_TOL = 1e-3
 REPS = 25
 INT_REPS = 10
-KERNELS = ("fast10", "gather_windows", "shi_tomasi")
+KERNELS = ("fast10", "gather_windows", "shi_tomasi", "pose_gn", "sbi_esm")
 #: The CUDA graphs' conditional-node helper (``csrc/graph_cond.cu``): no
 #: kernel of the path, built with the kernels.
 GRAPH_COND = "graph_cond"
@@ -275,6 +288,20 @@ F32_OPS_S = 67e12
 # K3's float32 operations a pixel: 2 gradients, 3 products, 3 x (6 + 6)
 # box-sum adds, 3 divides, 11 for the smaller eigenvalue.
 SHI_OPS = 55
+# K4's float32 operations a point and iteration (projection 34, camera
+# derivatives 22, pose Jacobian 85, error 7, weight 4, scaling 24, normal
+# equations 108) and K5's a pixel and iteration (warp 25, gradients and
+# residual 13, sums 30); the median's comparisons are not counted.
+GN_OPS = 280
+ESM_OPS = 70
+# Phase 2d: K4's weights against the plain version's at sigma^2 = 16,
+# scaled by 16 / sigma^2 (tests/test_torch_pose_kernels.py: 1.2e-5
+# measured there at 16 on an H100); a zero weight against a nonzero one
+# only where the nonzero one is at most ZERO_W_MAX (err^2 within 1e-5 of
+# sigma^2 for Tukey, w = (1 - err^2 / sigma^2)^2).
+K4_W_TOL = 2e-5
+ZERO_W_MAX = 1e-10
+SE2_TOL = 1e-5
 # Phase 8: BA tiers (cameras, points, measurements), bench_ba.py's.
 BA_TIERS = {"local": (5, 512, 2048), "global": (64, 4096, 16384)}
 BA_REPS = 5
@@ -961,8 +988,10 @@ def bootstrap(torch, dev, card, kernels, reset_counts, counts):
     # Each build: K1 and K3 once; the start cuts the MiniPatches (K2);
     # each advance: the forward search pair, the backward cut and the
     # backward search pair (K2).
-    per_trail = {"fast10": 1, "shi_tomasi": 1, "gather_windows": 3}
-    want = {name: 1 + N_TRAIL * n for name, n in per_trail.items()}
+    per_trail = {"fast10": 1, "shi_tomasi": 1, "gather_windows": 3,
+                 "pose_gn": 0, "sbi_esm": 0}
+    want = {name: 1 + N_TRAIL * n if n else 0
+            for name, n in per_trail.items()}
     check(trail_counts == want, f"trail-tracking launch counts differ from "
           f"{want}")
     check(n_good[-1] >= 0.5 * n_start > 50, f"too few trails survive: "
@@ -1010,7 +1039,8 @@ def bootstrap(torch, dev, card, kernels, reset_counts, counts):
     # levels, each graph's warm-up call (phase 18) besides.
     n_levels = init_calls.n["add_points_epipolar"]
     want_init = {"fast10": 0, "shi_tomasi": 0,
-                 "gather_windows": 2 + 3 * n_levels}
+                 "gather_windows": 2 + 3 * n_levels, "pose_gn": 0,
+                 "sbi_esm": 0}
     check(n_levels in (4, 8), f"init ran {n_levels} epipolar levels, not 4 "
           f"(and a warm-up each if captured)")
     check(init_counts == want_init, f"init launch counts differ from "
@@ -1473,13 +1503,15 @@ def engine_targets():
     """The functions that launch each kernel on the engine's path: K1 in
     every build, K3 in a keyframe build; K2 4 a tracked frame, 2 a
     re-find of one keyframe, 3 an epipolar level, 1 at the trail start, 3
-    a trail frame, 2 in an init outside its epipolar levels."""
+    a trail frame, 2 in an init outside its epipolar levels; K4 2 a
+    tracked frame; K5 1 a tracked frame and 1 a relocalization."""
     from ptam_cg_tpu_torch.models import initializer, keyframe, mapmaker
-    from ptam_cg_tpu_torch.models import tracker
+    from ptam_cg_tpu_torch.models import relocalizer, tracker
     return [(tracker, "track_frame_from_image"), (keyframe, "build_frame"),
             (mapmaker, "refind_in_kf"), (mapmaker, "add_points_epipolar"),
             (initializer, "trail_start"), (initializer, "trail_advance"),
-            (initializer, "init_from_stereo")]
+            (initializer, "init_from_stereo"),
+            (relocalizer, "attempt_recovery")]
 
 
 def expected_launches(n):
@@ -1490,7 +1522,9 @@ def expected_launches(n):
             "gather_windows": 4 * n["track_frame_from_image"]
             + 2 * n["refind_in_kf"] + 3 * n["add_points_epipolar"]
             + n["trail_start"] + 3 * n["trail_advance"]
-            + 2 * n["init_from_stereo"]}
+            + 2 * n["init_from_stereo"],
+            "pose_gn": 2 * n["track_frame_from_image"],
+            "sbi_esm": n["track_frame_from_image"] + n["attempt_recovery"]}
 
 
 def compare_relocs(eng, torch):
@@ -2057,7 +2091,8 @@ def async_engine(torch, dev, card, kernels, reset_counts, counts, mods, ph11):
     m_calls = calls.mapping
     on_mapping = {"fast10": 0, "shi_tomasi": 0, "gather_windows":
                   2 * m_calls["refind_in_kf"]
-                  + 3 * m_calls["add_points_epipolar"]}
+                  + 3 * m_calls["add_points_epipolar"], "pose_gn": 0,
+                  "sbi_esm": 0}
     labels = {0: "legacy default (tracking)", map_stream: "mapping"}
     named = {name: {labels.get(k, str(k)): v for k, v in d.items()}
              for name, d in by_stream.items()}
@@ -2493,11 +2528,14 @@ def rank_engine(torch, dev, rank, mesh, workdir, out):
                                           MapMakerConfig)
     from ptam_cg_tpu_torch.kernels import fast as kfast
     from ptam_cg_tpu_torch.kernels import gather as kgather
+    from ptam_cg_tpu_torch.kernels import pose_gn as kpose
+    from ptam_cg_tpu_torch.kernels import sbi_esm as kesm
     from ptam_cg_tpu_torch.kernels import shi_tomasi as kshi
     from ptam_cg_tpu_torch.models import engine as englib
     from ptam_cg_tpu_torch.parallel import sharded_ba
     frames = np.load(os.path.join(workdir, "gframes.npy"))
-    mods = {"fast10": kfast, "gather_windows": kgather, "shi_tomasi": kshi}
+    mods = {"fast10": kfast, "gather_windows": kgather, "shi_tomasi": kshi,
+            "pose_gn": kpose, "sbi_esm": kesm}
     shards = [0]
     orig = sharded_ba.shard_problem
 
@@ -2809,7 +2847,9 @@ def meshed_engine(torch, dev, card, kernels, ph11):
 PROGRAM_KERNELS = {"fast10": (r"\d+fast10_atlas_kernel",),
                    "gather_windows": (r"\d+gather_kernel",
                                       r"\d+gather_pair_kernel"),
-                   "shi_tomasi": (r"\d+shi_tomasi_atlas_kernel",)}
+                   "shi_tomasi": (r"\d+shi_tomasi_atlas_kernel",),
+                   "pose_gn": (r"\d+pose_gn_kernel",),
+                   "sbi_esm": (r"\d+sbi_esm_kernel",)}
 #: A tracked frame's launches and copies besides its graph replay.
 OUTSIDE_LAUNCHES = 22
 RUNTIME_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
@@ -2838,7 +2878,9 @@ class PlainCalls:
         self.targets = [(mods["fast10"], "fast_atlas_plain"),
                         (mods["gather_windows"], "gather_windows_plain"),
                         (mods["gather_windows"], "gather_window_pair_plain"),
-                        (mods["shi_tomasi"], "shi_tomasi_atlas_plain")]
+                        (mods["shi_tomasi"], "shi_tomasi_atlas_plain"),
+                        (mods["pose_gn"], "pose_gn_plain"),
+                        (mods["sbi_esm"], "esm_plain")]
         self.n = 0
 
     def __enter__(self):
@@ -2858,7 +2900,7 @@ class PlainCalls:
 
 def program_numbers(torch, card, mods, tag, graphed, eager, want):
     """Phase 17's numbers of one program, filled and called once each:
-    capture s, graph nodes (and those of K1-K3, equal to the launches the
+    capture s, graph nodes (and those of K1-K5, equal to the launches the
     capture recorded and to ``want``), a replay's ms by CUDA events and
     by the host clock, device us; the eager call's launches, ms and
     device us beside them."""
@@ -2872,13 +2914,13 @@ def program_numbers(torch, card, mods, tag, graphed, eager, want):
     e_host = host_ms(eager.run, torch, reps=5)
     e_us, e_n = device_us(lambda _: eager.run(), torch, n=3)
     print(f"[17] {tag}: capture {g.capture_s:.3f} s; {nodes} graph nodes "
-          f"({by_kernel} of K1-K3; the capture recorded {tally}) against "
+          f"({by_kernel} of K1-K5; the capture recorded {tally}) against "
           f"{e_n:.0f} kernels an eager call; a replay {r_ms:.3f} ms (CUDA "
           f"events), {r_host:.3f} ms (host clock), device {fmt_us(r_us)} "
           f"in {r_n:.0f} kernels; eager {e_ms:.3f} ms (CUDA events), "
           f"{e_host:.3f} ms (host clock), device {fmt_us(e_us)}  [{card}]")
     check(tally == want and by_kernel == want,
-          f"17: {tag}'s graph holds {by_kernel} K1-K3 nodes, its capture "
+          f"17: {tag}'s graph holds {by_kernel} K1-K5 nodes, its capture "
           f"recorded {tally}; want {want}")
 
 
@@ -3000,7 +3042,8 @@ def programs_phase(torch, dev, card, mods, seq, m, ff0, frames, im_kf,
         "beyond eager's own spread")
     program_numbers(torch, card, mods, "tracking program", graphed,
                     make(programs.TrackProgram, False),
-                    {"fast10": 1, "gather_windows": 4, "shi_tomasi": 0})
+                    {"fast10": 1, "gather_windows": 4, "shi_tomasi": 0,
+                     "pose_gn": 2, "sbi_esm": 1})
     # The 14 view copies of a tracked frame, at the engine's capacity.
     eng_prog = make(programs.TrackProgram, False,
                     cap=(ENG_MAP["max_points"], ENG_MAP["max_kfs"]))
@@ -3033,7 +3076,8 @@ def programs_phase(torch, dev, card, mods, seq, m, ff0, frames, im_kf,
     check(not same and plain.n == 0, "17: the build program differs from "
           "the eager build")
     program_numbers(torch, card, mods, "keyframe build", b_graph, b_eager,
-                    {"fast10": 1, "gather_windows": 0, "shi_tomasi": 1})
+                    {"fast10": 1, "gather_windows": 0, "shi_tomasi": 1,
+                     "pose_gn": 0, "sbi_esm": 0})
 
     # ---- the relocalizer on 11d's lost frames ----
     relocs = ph11["relocs"]
@@ -3048,7 +3092,8 @@ def programs_phase(torch, dev, card, mods, seq, m, ff0, frames, im_kf,
     r_graph(view, sbi)
     r_eager(view, sbi)
     program_numbers(torch, card, mods, "relocalizer", r_graph, r_eager,
-                    {"fast10": 0, "gather_windows": 0, "shi_tomasi": 0})
+                    {"fast10": 0, "gather_windows": 0, "shi_tomasi": 0,
+                     "pose_gn": 0, "sbi_esm": 1})
 
     # ---- the host's launches of a tracked frame outside the replay ----
     k, made = outside_launches(torch, ph11, dev)
@@ -3609,6 +3654,145 @@ def map_bytes(m):
                for f in dataclasses.fields(m))
 
 
+def pose_kernels_phase(torch, dev, card, kernels, add_row, bound_text,
+                       run_frames):
+    """Phase 2d: K4 (the Gauss-Newton pose loop) and K5 (the SBI ESM) on
+    the card against their plain versions, on the inputs the tracking
+    step gives them: ``run_frames`` reruns phase 4's frames while the
+    wrappers are replaced by recorders that keep each call's inputs. Each
+    recorded call runs twice through the kernel (bit-identical) and once
+    through the plain version (the bars); the last frame's calls are
+    timed."""
+    import inspect
+    from collections import Counter
+
+    from ptam_cg_tpu_torch.kernels import pose_gn as kpose
+    from ptam_cg_tpu_torch.kernels import sbi_esm as kesm
+    from ptam_cg_tpu_torch.utils import se3
+    calls = {"gn": [], "esm": []}
+    gn, esm = kpose.pose_gn, kesm.esm
+    gn_args = inspect.signature(gn)
+
+    def kept(args):
+        return tuple(x.clone() if torch.is_tensor(x) else x for x in args)
+
+    def rec_gn(*a, **kw):
+        # Every argument positionally (the tracker passes some by name).
+        bound = gn_args.bind(*a, **kw)
+        bound.apply_defaults()
+        pose, *rest = [v for k, v in bound.arguments.items()
+                       if k != "iterations"]
+        calls["gn"].append((se3.SE3(pose.R.clone(), pose.t.clone()),
+                            *kept(rest)))
+        return gn(*a, **kw)
+
+    def rec_esm(*a, **kw):
+        calls["esm"].append(kept(a))
+        return esm(*a, **kw)
+    kpose.pose_gn, kesm.esm = rec_gn, rec_esm
+    try:
+        run_frames()
+    finally:
+        kpose.pose_gn, kesm.esm = gn, esm
+    n_frames = len(calls["esm"])
+    check(len(calls["gn"]) == 2 * n_frames > 0, f"2d: recorded "
+          f"{len(calls['gn'])} K4 and {n_frames} K5 calls")
+
+    its = torch.zeros(1, dtype=torch.int32, device=dev)
+    for what, recs in (("coarse", calls["gn"][0::2]),
+                       ("final", calls["gn"][1::2])):
+        d_R = d_t = d_w = d_w16 = 0.0
+        zero_near = zero_far = 0
+        n_its, same = [], True
+        for a in recs:
+            p1, w1 = kpose.pose_gn(*a, iterations=its)
+            n_its.append(int(its))
+            p2, w2 = kpose.pose_gn(*a)
+            same &= (torch.equal(p1.R, p2.R) and torch.equal(p1.t, p2.t)
+                     and torch.equal(w1, w2))
+            pr, wr = kpose.pose_gn_plain(*a)
+            d_R = max(d_R, max_abs_diff(p1.R, pr.R))
+            d_t = max(d_t, max_abs_diff(p1.t, pr.t))
+            d_w = max(d_w, max_abs_diff(w1, wr))
+            # The bar is K4_W_TOL at sigma^2 = 16, scaled by 16 / sigma^2.
+            d_w16 = max(d_w16, max_abs_diff(w1, wr) * a[9] / 16.0)
+            other = torch.where(w1 == 0, wr, w1)[(w1 == 0) != (wr == 0)]
+            zero_near += int((other <= ZERO_W_MAX).sum())
+            zero_far += int((other > ZERO_W_MAX).sum())
+        n_found = [int(a[4].sum()) for a in recs]
+        a = recs[-1]
+        N, sigma_sq = a[3].shape[0], a[9]
+        call = lambda _: kpose.pose_gn(*a)              # noqa: E731
+        ms_k = time_ms(call, torch)
+        plain = time_ms(lambda _: kpose.pose_gn_plain(*a), torch, reps=5)
+        dev_k, n_k = device_us(call, torch, match="pose_gn")
+        kpose.pose_gn(*a, iterations=its)
+        n_last = int(its)
+        # Read: points, found flags, found positions, levels, the pose and
+        # the camera's 9 floats; written: weights, the pose.
+        nbytes = N * (12 + 1 + 8 + 8 + 4) + 4 * (12 + 9 + 12)
+        ops = GN_OPS * N * n_last
+        add_row(kernels["pose_gn"], ms_k, plain, dev_k, nbytes, ops,
+                err=max(d_R, d_t))
+        print(f"[2d] K4 {what} call N={N} on phase 4's {len(recs)} frames "
+              f"({min(n_found)}-{max(n_found)} found points a call): "
+              f"two launches bit-identical {same}; kernel vs plain: pose "
+              f"|dR| {d_R:.2e} |dt| {d_t:.2e} (bar {POSE_TOL:.0e}), weights "
+              f"{d_w:.2e} (bar {K4_W_TOL * 16.0 / sigma_sq:.1e} at sigma^2 "
+              f"{sigma_sq:g}), zero-weight differences {zero_near} at "
+              f"err^2 ~ sigma^2, {zero_far} elsewhere (bar 0); iterations "
+              f"run {dict(sorted(Counter(n_its).items()))}; the last "
+              f"frame's call: kernel {ms_k:.4f} ms, plain {plain:.4f} ms "
+              f"(CUDA events), device {fmt_us(dev_k)} in {n_k:.0f} launch, "
+              f"{bound_text(nbytes, ops)} over its {n_last} iterations; "
+              f"launches a frame 1  [{card}]")
+        check(min(n_found) > 0, f"2d: a K4 {what} call had no found point")
+        check(same, f"2d: K4's {what} call is not deterministic")
+        check(d_R <= POSE_TOL and d_t <= POSE_TOL,
+              f"2d: K4's {what} pose differs from its plain version")
+        check(d_w16 <= K4_W_TOL and zero_far == 0,
+              f"2d: K4's {what} weights differ from its plain version")
+
+    d_R = d_t = d_s = 0.0
+    same = True
+    for a in calls["esm"]:
+        r1, r2 = kesm.esm(*a), kesm.esm(*a)
+        same &= all(torch.equal(x, y) for x, y in zip(r1, r2))
+        ref = kesm.esm_plain(*a)
+        d_R = max(d_R, max_abs_diff(r1[0], ref[0]))
+        d_t = max(d_t, max_abs_diff(r1[1], ref[1]))
+        d_s = max(d_s, abs(float(r1[2]) - float(ref[2]))
+                  / max(abs(float(ref[2])), 1.0))
+    a = calls["esm"][-1]
+    h, w = a[0].shape
+    call = lambda _: kesm.esm(*a)                       # noqa: E731
+    ms_k = time_ms(call, torch)
+    plain = time_ms(lambda _: kesm.esm_plain(*a), torch, reps=5)
+    dev_k, n_k = device_us(call, torch, match="sbi_esm")
+    # Read: two templates and the target's gradients; written: R, t, score.
+    nbytes, ops = h * w * 16 + 28, ESM_OPS * h * w * a[3]
+    add_row(kernels["sbi_esm"], ms_k, plain, dev_k, nbytes, ops,
+            err=max(d_R, d_t))
+    print(f"[2d] K5 {h}x{w} SBIs of phase 4's {n_frames} frames (each "
+          f"against its predecessor's): two launches bit-identical {same}; "
+          f"kernel vs plain: |dR| {d_R:.2e} |dt| {d_t:.2e} (bar "
+          f"{SE2_TOL:.0e}), score {d_s:.2e} relative (bar 1e-4); the last "
+          f"frame's call: kernel {ms_k:.4f} ms, plain {plain:.4f} ms (CUDA "
+          f"events), device {fmt_us(dev_k)} in {n_k:.0f} launch, "
+          f"{bound_text(nbytes, ops)}; launches a frame 1, a relocalization "
+          f"1  [{card}]")
+    check(same, "2d: K5 is not deterministic")
+    check(d_R <= SE2_TOL and d_t <= SE2_TOL and d_s <= 1e-4,
+          "2d: K5 differs from its plain version")
+    for name in ("pose_gn", "sbi_esm"):
+        k = kernels[name]
+        print(f"[2d] {name} summed over a tracked frame's calls: kernel "
+              f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms (CUDA "
+              f"events); device {fmt_us(k['device_us'])}; bound "
+              f"{k['bound_us']:.3f} us ({k['bound_by']}); "
+              f"{k['launches_per_frame']} launches a frame")
+
+
 def bf16_phase(torch, dev, card, kernels, entry, add_row, bound_text,
                reset_counts, counts, ph11):
     """Phase 19: the bf16 frontend configuration (``FrontendConfig(
@@ -3766,7 +3950,7 @@ def bf16_phase(torch, dev, card, kernels, entry, add_row, bound_text,
                                  **ENG_MAP, **kw)
 
     def engine_run(eng, ims, times=None):
-        """``run`` with K1-K3 and the bf16 K2 launches counted; returns
+        """``run`` with K1-K5 and the bf16 K2 launches counted; returns
         (infos, launches, expected launches, bf16 K2 launches)."""
         torch.cuda.synchronize()
         reset_counts()
@@ -3874,6 +4058,8 @@ def main():
     from ptam_cg_tpu_torch.kernels import _build
     from ptam_cg_tpu_torch.kernels import fast as kfast
     from ptam_cg_tpu_torch.kernels import gather as kgather
+    from ptam_cg_tpu_torch.kernels import pose_gn as kpose
+    from ptam_cg_tpu_torch.kernels import sbi_esm as kesm
     from ptam_cg_tpu_torch.kernels import shi_tomasi as kshi
     from ptam_cg_tpu_torch.models import graphs
     from ptam_cg_tpu_torch.models import keyframe as kflib
@@ -3887,7 +4073,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    mods = {"fast10": kfast, "gather_windows": kgather, "shi_tomasi": kshi}
+    mods = {"fast10": kfast, "gather_windows": kgather, "shi_tomasi": kshi,
+            "pose_gn": kpose, "sbi_esm": kesm}
 
     def reset_launch_counts():
         graphs.settle_launches()
@@ -3944,7 +4131,12 @@ def main():
         "shi_tomasi": entry("shi_tomasi",
                             "ptam_cg_tpu_torch/csrc/shi_tomasi.cu",
                             "ptam_cg_tpu/ops/pallas_kernels.py:326", 0, 1,
-                            False)}
+                            False),
+        # The JAX package's two heaviest loops of the tracking program.
+        "pose_gn": entry("pose_gn", "ptam_cg_tpu_torch/csrc/pose_gn.cu",
+                         "ptam_cg_tpu/models/tracker.py:321", 2, 0, False),
+        "sbi_esm": entry("sbi_esm", "ptam_cg_tpu_torch/csrc/sbi_esm.cu",
+                         "ptam_cg_tpu/ops/sbi.py:64", 1, 0, False)}
 
     def add_row(k, ms_k, plain, dev_k, nbytes, ops, lib=None, err=0.0):
         """Add one path call's numbers to kernel k's summary; returns its
@@ -4249,7 +4441,7 @@ def main():
               f"library {fmt_us(dev_l)} ({n_l:.0f} kernels); "
               f"{bound_text(nbytes, 0)}; launches a frame {per_frame}, a "
               f"keyframe {per_kf}  [{card}]")
-    for k in kernels.values():
+    for k in (kernels[name] for name in KERNELS[:3]):
         print(f"[3] {k['name']} summed over a tracked frame's calls: kernel "
               f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, library "
               f"{k['library_ms']} ms (CUDA events); device "
@@ -4353,6 +4545,19 @@ def main():
 
     syncs = host_syncs(lambda: step(state, m, frames[-1], prev))
     print(f"[4] host syncs in one step: {len(syncs)} {syncs}")
+
+    # ---- 2d. K4 and K5 against their plain versions on phase 4's frames ----
+    # Phase 4 again, each frame's start velocity above the coarse gate (as
+    # phase 5's), so that the coarse call has found points.
+    def rerun_phase4():
+        st, pv = tracker.init_tracker_state(seq.pose(0), seed=0), ff0.sbi_track
+        for im in frames:
+            st = dataclasses.replace(
+                st, msd_vel=torch.full((), 0.01, device=dev))
+            out = step(st, m, im, pv)
+            st, pv = out.state, out.sbi_track
+    pose_kernels_phase(torch, dev, card, kernels, add_row, bound_text,
+                       rerun_phase4)
 
     # ---- 5. card against CPU ----
     gen = torch.Generator().manual_seed(11)
@@ -4544,9 +4749,9 @@ def main():
     ba_mapmaker_64(torch, dev, card)
     gpu_m6 = ba_mapmaker_phase6(torch, card, mk2, new_mask, seq.cam, cpu_cam)
     launches = launch_counts()
-    print(f"[9] launches of K1-K3 in phases 8-9's BA: {launches} (BA has "
+    print(f"[9] launches of K1-K5 in phases 8-9's BA: {launches} (BA has "
           f"no hand-written kernel)")
-    check(not any(launches.values()), "BA launched a kernel of K1-K3")
+    check(not any(launches.values()), "BA launched a kernel of K1-K5")
     bad, state, prev = [], state_kf, prev_kf
     reset_launch_counts()
     for i in range(N_TRACK_KF + 1, N_FRAMES + 1):

@@ -85,7 +85,7 @@ class TrackProgram(Program):
     ``wiggle_depth_norm`` (a 0-dim tensor, refilled when the float
     changes). The view's keyframe atlases are in the dtype of
     ``cfg.frontend`` (``map_state.atlas_dtype``), as the frame's atlas
-    is. K1 launches once and K2 four times a call."""
+    is. K1 launches once, K2 four times, K4 twice and K5 once a call."""
 
     name = "track_frame_from_image"
 
@@ -220,8 +220,8 @@ class RelocView(NamedTuple):
 
 class RelocProgram(Program):
     """Relocalization (``attempt_recovery``, engine.py:222-224) against
-    the map's keyframes at one keyframe capacity. No hand-written kernel
-    runs in it. Returns a clone of the result."""
+    the map's keyframes at one keyframe capacity. K5 (the ESM) launches
+    once a call. Returns a clone of the result."""
 
     name = "attempt_recovery"
 

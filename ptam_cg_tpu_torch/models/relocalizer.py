@@ -6,8 +6,8 @@ pose. Success when the ESM score is under ``max_score`` (Reloc2.MaxScore,
 9e6) and the best keyframe is valid.
 
 The scan over keyframes is one batched reduction, and the best keyframe
-stays a tensor: nothing is read on the host. No hand-written kernel runs
-here.
+stays a tensor: nothing is read on the host. The ESM is one launch of
+kernel K5 on the card (``kernels/sbi_esm.py``).
 """
 
 from __future__ import annotations

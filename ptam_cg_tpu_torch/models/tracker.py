@@ -13,7 +13,9 @@ masked, fixed-count forms, so the step issues no host sync:
   selects the skip branch's zeros / input pose, which is exact;
 - the subpixel loop runs its full count with settled points frozen,
   which equals the JAX early exit exactly;
-- the Gauss-Newton loop runs its full count but freezes the pose once the
+- the Gauss-Newton loop is one kernel launch on the card (K4,
+  ``kernels/pose_gn.py``) that exits where the JAX loop does; its plain
+  version, on the CPU, runs the full count and freezes the pose once the
   JAX loop would have exited, which matches it to float noise.
 
 Random subsets: the coarse and fine uniforms can be passed in (parity
@@ -31,6 +33,7 @@ import torch
 
 from ptam_cg_tpu_torch.config import FrontendConfig, LEVELS, TrackerConfig
 from ptam_cg_tpu_torch.camera import atan
+from ptam_cg_tpu_torch.kernels import pose_gn as kpose
 from ptam_cg_tpu_torch.models import keyframe as kflib
 from ptam_cg_tpu_torch.models import map_state as ms
 from ptam_cg_tpu_torch.models.keyframe import TrackFeatures
@@ -171,31 +174,6 @@ def _topk_pad(keys: Tensor, cap: int) -> Tensor:
     return idx
 
 
-def _project_points(pose: SE3, pts_w: Tensor, cam: atan.Camera, image_size):
-    W, H = image_size
-    p_cam = pts_w @ pose.R.T + pose.t
-    z = p_cam[..., 2]
-    z_ok = z > 0.001
-    safe_z = torch.where(z_ok, z, 1.0)
-    z1 = p_cam[..., :2] / safe_z[..., None]
-    r_ok = torch.sum(z1 * z1, dim=-1) <= cam.largest_radius ** 2
-    pix = atan.project(z1, cam)
-    in_im = ((pix[..., 0] >= 0) & (pix[..., 1] >= 0)
-             & (pix[..., 0] <= W) & (pix[..., 1] <= H))
-    ok = z_ok & r_ok & in_im & atan.project_valid(z1, cam)
-    return p_cam, z1, pix, ok
-
-
-def _pose_jacobian(p_cam: Tensor, cam_derivs: Tensor) -> Tensor:
-    """(N, 2, 6) d(pixel)/d(left-multiplied twist)."""
-    z = p_cam[..., 2]
-    inv_z = 1.0 / torch.where(torch.abs(z) < 1e-9, 1e-9, z)
-    gen = se3lib.motion_jacobian(p_cam)                     # (N, 6, 3)
-    plane = (gen[..., :2] - p_cam[..., None, :2]
-             * gen[..., 2:] * inv_z[..., None, None]) * inv_z[..., None, None]
-    return cam_derivs @ plane.transpose(-1, -2)
-
-
 def _search_subset(m: MapState | TrackView, frame: TrackFeatures,
                    pose: SE3, cam: atan.Camera, image_size, idx: Tensor,
                    active: Tensor, range_l0, subpix_its: int,
@@ -205,7 +183,8 @@ def _search_subset(m: MapState | TrackView, frame: TrackFeatures,
     (``bf16_cross``: ``ssd_search``'s)."""
     W, H = image_size
     pts_w = m.point_pos[idx]
-    p_cam, z1, pix, proj_ok = _project_points(pose, pts_w, cam, image_size)
+    p_cam, z1, pix, proj_ok = kpose.project_points(pose, pts_w, cam,
+                                                   image_size)
     warp = patchops.search_level_and_warp(
         p_cam, pose.R, m.point_right_w[idx], m.point_down_w[idx],
         atan.project_derivs(z1, cam))
@@ -250,48 +229,6 @@ def _search_subset(m: MapState | TrackView, frame: TrackFeatures,
                 ssd=res.ssd, margin=res.margin, step=step)
 
 
-def _gn_pose_iterations(pose: SE3, cam: atan.Camera, image_size,
-                        pts_w: Tensor, found: Tensor, v2found: Tensor,
-                        level: Tensor, n_iters: int, override_after: int,
-                        override_val: float, mest_kind: int = mest.TUKEY):
-    """Tukey-reweighted Gauss-Newton pose loop. Runs ``n_iters``
-    iterations; once the JAX loop would have exited (in the override-sigma
-    regime with a ~zero update) the pose and weights stay frozen.
-    Returns (pose, final weights)."""
-    sqrt_inv_noise = 1.0 / levelops.level_scale(level)
-    dev = pts_w.device
-    eye6 = 100.0 * torch.eye(6, dtype=torch.float32, device=dev)
-    R, t = pose.R, pose.t
-    w = torch.zeros(pts_w.shape[0], dtype=torch.float32, device=dev)
-    settled = torch.zeros((), dtype=torch.bool, device=dev)
-    for it in range(n_iters):
-        pose_i = SE3(R, t)
-        p_cam, z1, pix, proj_ok = _project_points(pose_i, pts_w, cam,
-                                                  image_size)
-        J = _pose_jacobian(p_cam, atan.project_derivs(z1, cam))
-        err = (v2found - pix) * sqrt_inv_noise[:, None]
-        ok = found & proj_ok
-        err_sq = torch.sum(err * err, dim=-1)
-        if it > override_after:
-            sigma_sq = torch.full((), override_val, dtype=torch.float32,
-                                  device=dev)
-        else:
-            sigma_sq = mest.find_sigma_squared(err_sq, ok, mest_kind,
-                                               approx=True)
-        w_i = torch.where(ok, mest.weight(err_sq, sigma_sq, mest_kind), 0.0)
-        Js = J * sqrt_inv_noise[:, None, None]
-        JTJ = torch.einsum("n,nij,nik->jk", w_i, Js, Js) + eye6
-        rhs = torch.einsum("n,nij,ni->j", w_i, Js, err)
-        upd = torch.linalg.solve_ex(JTJ, rhs).result
-        new = se3lib.mul(se3lib.se3_exp(upd), pose_i)
-        R = torch.where(settled, R, new.R)
-        t = torch.where(settled, t, new.t)
-        w = torch.where(settled, w, w_i)
-        if it > override_after:
-            settled = settled | (torch.sum(upd * upd) < 1e-10)
-    return SE3(R, t), w
-
-
 def local_point_mask(m: MapState | TrackView, pose: SE3,
                      n_nearest: int = 4) -> Tensor:
     """Points measured by the ``n_nearest`` valid keyframes nearest
@@ -332,8 +269,8 @@ def track_map(m: MapState | TrackView, frame: TrackFeatures, pose: SE3,
     mest_kind = mest.estimator_id(cfg.mestimator)
 
     # ---- PVS: classify every map point ----
-    p_cam, z1, pix, proj_ok = _project_points(pose, m.point_pos, cam,
-                                              image_size)
+    p_cam, z1, pix, proj_ok = kpose.project_points(pose, m.point_pos, cam,
+                                                   image_size)
     warp = patchops.search_level_and_warp(
         p_cam, pose.R, m.point_right_w, m.point_down_w,
         atan.project_derivs(z1, cam))
@@ -375,7 +312,7 @@ def track_map(m: MapState | TrackView, frame: TrackFeatures, pose: SE3,
     did_coarse = do_coarse & (n_coarse_found >= cfg.coarse_min)
 
     coarse_pts = m.point_pos[coarse_idx]
-    coarse_pose, _ = _gn_pose_iterations(
+    coarse_pose, _ = kpose.pose_gn(
         pose, cam, image_size, coarse_pts, cres["found"], cres["pos_l0"],
         cres["level"], cfg.pose_iterations, override_after=5,
         override_val=1.0, mest_kind=mest_kind)
@@ -416,7 +353,7 @@ def track_map(m: MapState | TrackView, frame: TrackFeatures, pose: SE3,
     all_found = both("found")
     all_level = both("level")
     all_pts = m.point_pos[all_idx]
-    final_pose, final_w = _gn_pose_iterations(
+    final_pose, final_w = kpose.pose_gn(
         pose_after_coarse, cam, image_size, all_pts, all_found,
         both("pos_l0"), all_level, cfg.pose_iterations, override_after=5,
         override_val=16.0, mest_kind=mest_kind)
@@ -432,7 +369,7 @@ def track_map(m: MapState | TrackView, frame: TrackFeatures, pose: SE3,
     found_stats = count(all_level, all_found, LEVELS)
 
     # ---- scene depth ----
-    zs = _project_points(final_pose, all_pts, cam, image_size)[0][..., 2]
+    zs = kpose.project_points(final_pose, all_pts, cam, image_size)[0][..., 2]
     nf = torch.sum(all_found.to(torch.float32))
     zsum = torch.sum(torch.where(all_found, zs, 0.0))
     zsq = torch.sum(torch.where(all_found, zs * zs, 0.0))

@@ -1,11 +1,11 @@
 """SmallBlurryImage: construction, ESM SE2 alignment, SE3-from-SE2 (port of
 ``ptam_cg_tpu.ops.sbi``).
 
-The bilinear warp of the ESM loop reads its four taps with a direct
-indexed load; the JAX package expresses the same sampling as an (hw, hw)
-one-hot matmul because per-element gathers are slow on the TPU. The loops
-have fixed counts (10 ESM iterations, 3 Gauss-Newton steps), so they run
-as plain Python loops with no data-dependent exit.
+The ESM loop is one kernel launch on the card (K5,
+``kernels/sbi_esm.py``); its bilinear warp reads its four taps directly,
+where the JAX package expresses the same sampling as an (hw, hw) one-hot
+matmul because per-element gathers are slow on the TPU. The 3
+Gauss-Newton steps of ``se3_from_se2`` run as a plain Python loop.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from typing import Tuple
 import torch
 
 from ptam_cg_tpu_torch.camera import atan
+from ptam_cg_tpu_torch.kernels import sbi_esm as kesm
 from ptam_cg_tpu_torch.ops import image as imops
 from ptam_cg_tpu_torch.utils import geometry as geomlib
 from ptam_cg_tpu_torch.utils import se3 as se3lib
@@ -53,76 +54,17 @@ def make_sbi(level3: Tensor, blur: float = 2.5) -> SBI:
     return SBI(template=tmpl, jac=torch.stack([gx, gy], dim=-1))
 
 
-def so2_exp(theta: Tensor) -> Tensor:
-    c, s = torch.cos(theta), torch.sin(theta)
-    return torch.stack([torch.stack([c, -s]), torch.stack([s, c])])
+so2_exp = kesm.so2_exp
 
 
 def iterate_pos_rel_to_target(moving: SBI, target: SBI,
                               n_iterations: int = 10) -> Tuple[SE2, Tensor]:
-    """ESM alignment: the SE2 warping ``moving`` onto ``target``.
-    Returns (se2_c_to_c, final_score)."""
-    tmpl = moving.template
-    h, w = tmpl.shape
-    dev = tmpl.device
-    cx, cy = w // 2, h // 2
-    ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
-    xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
-    interior = (ys >= 1) & (ys < h - 1) & (xs >= 1) & (xs < w - 1)
-    tmpl_flat = tmpl.reshape(-1)
-    center = torch.stack([xs[0, cx], ys[cy, 0]])
-
-    def warp(R, t):
-        """warped[p] = template(R p + t), bilinear; -9e20 where the 2x2
-        support leaves the image (CVD::transform's fill)."""
-        px = R[0, 0] * xs + R[0, 1] * ys + t[0]
-        py = R[1, 0] * xs + R[1, 1] * ys + t[1]
-        fx0 = torch.floor(px)
-        fy0 = torch.floor(py)
-        fx, fy = px - fx0, py - fy0
-        x0 = fx0.to(torch.int64)
-        y0 = fy0.to(torch.int64)
-        valid = (x0 >= 0) & (y0 >= 0) & (x0 < w - 1) & (y0 < h - 1)
-        base = (torch.clamp(y0, 0, h - 2) * w
-                + torch.clamp(x0, 0, w - 2)).reshape(-1)
-        t00 = tmpl_flat[base].reshape(h, w)
-        t01 = tmpl_flat[base + 1].reshape(h, w)
-        t10 = tmpl_flat[base + w].reshape(h, w)
-        t11 = tmpl_flat[base + w + 1].reshape(h, w)
-        vals = (t00 * ((1 - fx) * (1 - fy)) + t01 * (fx * (1 - fy))
-                + t10 * ((1 - fx) * fy) + t11 * (fx * fy))
-        return torch.where(valid, vals, -9e20), valid
-
-    R_cc = torch.eye(2, dtype=torch.float32, device=dev)
-    t_cc = torch.zeros(2, dtype=torch.float32, device=dev)
-    mean_off = torch.zeros((), dtype=torch.float32, device=dev)
-    score = torch.zeros((), dtype=torch.float32, device=dev)
-    eye4 = torch.eye(4, dtype=torch.float32, device=dev)
-    for _ in range(n_iterations):
-        # se2XForm = W * CtoC * W^-1 (warp about the image centre).
-        t_x = center + t_cc - R_cc @ center
-        warped, wvalid = warp(R_cc, t_x)
-        ok = interior & wvalid
-        for dy, dx in ((0, 1), (0, -1), (1, 0), (-1, 0)):
-            ok = ok & torch.roll(wvalid, (-dy, -dx), dims=(0, 1))
-        gx = torch.roll(warped, -1, dims=1) - torch.roll(warped, 1, dims=1)
-        gy = torch.roll(warped, -1, dims=0) - torch.roll(warped, 1, dims=0)
-        sum_gx = 0.25 * (gx + target.jac[..., 0])
-        sum_gy = 0.25 * (gy + target.jac[..., 1])
-        j2 = -(ys - cy) * sum_gx + (xs - cx) * sum_gy
-        diff = warped - target.template + mean_off
-        m = ok.to(torch.float32)
-        J = torch.stack([sum_gx, sum_gy, j2, torch.ones_like(sum_gx)],
-                        dim=-1) * m[..., None]
-        d = diff * m
-        score = torch.sum(d * d)
-        JTd = torch.einsum("hwk,hw->k", J, d)
-        JTJ = torch.einsum("hwi,hwj->ij", J, J)
-        upd = geomlib.spd_solve(JTJ + 1e-8 * eye4, JTd)
-        t_cc = R_cc @ (-upd[:2]) + t_cc
-        R_cc = R_cc @ so2_exp(-upd[2])
-        mean_off = mean_off - upd[3]
-    return SE2(R_cc, t_cc), score
+    """ESM alignment: the SE2 warping ``moving`` onto ``target``, one K5
+    launch on the card (``kernels/sbi_esm.py``). Returns (se2_c_to_c,
+    final_score)."""
+    R, t, score = kesm.esm(moving.template, target.template, target.jac,
+                           n_iterations)
+    return SE2(R, t), score
 
 
 def se3_from_se2(se2: SE2, cam_params: Tensor,
