@@ -55,8 +55,11 @@ Phases, each fatal on failure:
    zero-weight sets but where the other run's weight is at most 1e-10
    (err^2 within 1e-5 of sigma^2); K5's R and t within 1e-5 and score
    within 1e-4 relative; two launches bit-identical; each printed
-   beside the measured differences, with the iterations K4 ran, device
-   us, the bound, CUDA-event ms and the plain version's ms;
+   beside the measured differences, with device us, the bound (counted
+   on each call's data: K4's iterations and found points, K5's masked
+   pixels), CUDA-event ms and the plain version's ms. K5 also at the
+   SBIs of 1280x720 and 1920x1080 frames (45x80, 67x120: more than 48 kB
+   of shared memory), against its plain version at the same bars;
 5. the same frame, uniforms and start state (with the coarse stage on)
    through the port on the card and on the CPU: the same found set up to
    differences traced to float noise (under 1% of found points), and a
@@ -288,12 +291,14 @@ F32_OPS_S = 67e12
 # K3's float32 operations a pixel: 2 gradients, 3 products, 3 x (6 + 6)
 # box-sum adds, 3 divides, 11 for the smaller eigenvalue.
 SHI_OPS = 55
-# K4's float32 operations a point and iteration (projection 34, camera
-# derivatives 22, pose Jacobian 85, error 7, weight 4, scaling 24, normal
-# equations 108) and K5's a pixel and iteration (warp 25, gradients and
-# residual 13, sums 30); the median's comparisons are not counted.
-GN_OPS = 280
-ESM_OPS = 70
+# K4's float32 operations an iteration: for every point (projection 34,
+# error 7), and for each point found and projected at that iteration's
+# pose (weight 4, camera derivatives 22, pose Jacobian 85, scaling 24,
+# normal equations 108); the median's comparisons are not counted. K5's:
+# the warp of every pixel (25), and for each pixel inside the border with
+# its four neighbours' warps valid, gradients and residual 13, sums 30.
+GN_OPS_ALL, GN_OPS_OK = 41, 243
+ESM_OPS_ALL, ESM_OPS_OK = 25, 43
 # Phase 2d: K4's weights against the plain version's at sigma^2 = 16,
 # scaled by 16 / sigma^2 (tests/test_torch_pose_kernels.py: 1.2e-5
 # measured there at 16 on an H100); a zero weight against a nonzero one
@@ -3654,6 +3659,59 @@ def map_bytes(m):
                for f in dataclasses.fields(m))
 
 
+def gn_ops(a):
+    """K4's float32 operations on one recorded call ``a``, counted on its
+    data: each iteration the loop runs, at the pose it starts from (the
+    plain version after that many iterations). Iteration k ran if the
+    plain version after k + 1 iterations has another pose than after k:
+    once the loop has settled, the pose stays. Returns (operations,
+    iterations run)."""
+    import torch
+
+    from ptam_cg_tpu_torch.camera import atan
+    from ptam_cg_tpu_torch.kernels import pose_gn as kpose
+    _, cam, size, pts, found, _, _, n_iters, *rest = a
+    poses = [kpose.pose_gn_plain(*a[:7], k, *rest)[0]
+             for k in range(n_iters + 1)]
+    ops = n_run = 0
+    for k in range(n_iters):
+        if torch.equal(poses[k + 1].R, poses[k].R) and \
+                torch.equal(poses[k + 1].t, poses[k].t):
+            break
+        ok = found & atan.project_points(poses[k], pts, cam, size)[3]
+        ops += GN_OPS_ALL * pts.shape[0] + GN_OPS_OK * int(ok.sum())
+        n_run += 1
+    return ops, n_run
+
+
+def esm_ops(a):
+    """K5's float32 operations on one recorded call ``a`` (moving, target,
+    target_jac, iterations), counted on its data: each iteration's warp at
+    the SE2 it starts from (the plain version after that many iterations),
+    and the pixels of its mask: inside the border, the pixel and its four
+    neighbours warped from inside the image."""
+    import torch
+
+    from ptam_cg_tpu_torch.kernels import sbi_esm as kesm
+    moving, target, jac, n_iter = a
+    h, w = moving.shape
+    f32 = dict(dtype=torch.float32, device=moving.device)
+    ys = torch.arange(h, **f32)[:, None].expand(h, w)
+    xs = torch.arange(w, **f32)[None, :].expand(h, w)
+    center = torch.stack([xs[0, w // 2], ys[h // 2, 0]])
+    ops = 0
+    for k in range(n_iter):
+        R, t, _ = kesm.esm_plain(moving, target, jac, k)
+        t_x = center + t - R @ center
+        x0 = torch.floor(R[0, 0] * xs + R[0, 1] * ys + t_x[0])
+        y0 = torch.floor(R[1, 0] * xs + R[1, 1] * ys + t_x[1])
+        v = (x0 >= 0) & (y0 >= 0) & (x0 < w - 1) & (y0 < h - 1)
+        ok = (v[1:-1, 1:-1] & v[1:-1, 2:] & v[1:-1, :-2] & v[2:, 1:-1]
+              & v[:-2, 1:-1])
+        ops += ESM_OPS_ALL * h * w + ESM_OPS_OK * int(ok.sum())
+    return ops
+
+
 def pose_kernels_phase(torch, dev, card, kernels, add_row, bound_text,
                        run_frames):
     """Phase 2d: K4 (the Gauss-Newton pose loop) and K5 (the SBI ESM) on
@@ -3662,12 +3720,16 @@ def pose_kernels_phase(torch, dev, card, kernels, add_row, bound_text,
     wrappers are replaced by recorders that keep each call's inputs. Each
     recorded call runs twice through the kernel (bit-identical) and once
     through the plain version (the bars); the last frame's calls are
-    timed."""
+    timed, and their bounds counted on their data (``gn_ops``,
+    ``esm_ops``)."""
     import inspect
-    from collections import Counter
 
+    import numpy as np
+
+    from ptam_cg_tpu_torch.io import synth
     from ptam_cg_tpu_torch.kernels import pose_gn as kpose
     from ptam_cg_tpu_torch.kernels import sbi_esm as kesm
+    from ptam_cg_tpu_torch.ops import sbi
     from ptam_cg_tpu_torch.utils import se3
     calls = {"gn": [], "esm": []}
     gn, esm = kpose.pose_gn, kesm.esm
@@ -3680,8 +3742,7 @@ def pose_kernels_phase(torch, dev, card, kernels, add_row, bound_text,
         # Every argument positionally (the tracker passes some by name).
         bound = gn_args.bind(*a, **kw)
         bound.apply_defaults()
-        pose, *rest = [v for k, v in bound.arguments.items()
-                       if k != "iterations"]
+        pose, *rest = bound.arguments.values()
         calls["gn"].append((se3.SE3(pose.R.clone(), pose.t.clone()),
                             *kept(rest)))
         return gn(*a, **kw)
@@ -3698,15 +3759,13 @@ def pose_kernels_phase(torch, dev, card, kernels, add_row, bound_text,
     check(len(calls["gn"]) == 2 * n_frames > 0, f"2d: recorded "
           f"{len(calls['gn'])} K4 and {n_frames} K5 calls")
 
-    its = torch.zeros(1, dtype=torch.int32, device=dev)
     for what, recs in (("coarse", calls["gn"][0::2]),
                        ("final", calls["gn"][1::2])):
         d_R = d_t = d_w = d_w16 = 0.0
         zero_near = zero_far = 0
-        n_its, same = [], True
+        same = True
         for a in recs:
-            p1, w1 = kpose.pose_gn(*a, iterations=its)
-            n_its.append(int(its))
+            p1, w1 = kpose.pose_gn(*a)
             p2, w2 = kpose.pose_gn(*a)
             same &= (torch.equal(p1.R, p2.R) and torch.equal(p1.t, p2.t)
                      and torch.equal(w1, w2))
@@ -3726,12 +3785,10 @@ def pose_kernels_phase(torch, dev, card, kernels, add_row, bound_text,
         ms_k = time_ms(call, torch)
         plain = time_ms(lambda _: kpose.pose_gn_plain(*a), torch, reps=5)
         dev_k, n_k = device_us(call, torch, match="pose_gn")
-        kpose.pose_gn(*a, iterations=its)
-        n_last = int(its)
+        ops, n_last = gn_ops(a)
         # Read: points, found flags, found positions, levels, the pose and
         # the camera's 9 floats; written: weights, the pose.
         nbytes = N * (12 + 1 + 8 + 8 + 4) + 4 * (12 + 9 + 12)
-        ops = GN_OPS * N * n_last
         add_row(kernels["pose_gn"], ms_k, plain, dev_k, nbytes, ops,
                 err=max(d_R, d_t))
         print(f"[2d] K4 {what} call N={N} on phase 4's {len(recs)} frames "
@@ -3740,11 +3797,11 @@ def pose_kernels_phase(torch, dev, card, kernels, add_row, bound_text,
               f"|dR| {d_R:.2e} |dt| {d_t:.2e} (bar {POSE_TOL:.0e}), weights "
               f"{d_w:.2e} (bar {K4_W_TOL * 16.0 / sigma_sq:.1e} at sigma^2 "
               f"{sigma_sq:g}), zero-weight differences {zero_near} at "
-              f"err^2 ~ sigma^2, {zero_far} elsewhere (bar 0); iterations "
-              f"run {dict(sorted(Counter(n_its).items()))}; the last "
+              f"err^2 ~ sigma^2, {zero_far} elsewhere (bar 0); the last "
               f"frame's call: kernel {ms_k:.4f} ms, plain {plain:.4f} ms "
               f"(CUDA events), device {fmt_us(dev_k)} in {n_k:.0f} launch, "
-              f"{bound_text(nbytes, ops)} over its {n_last} iterations; "
+              f"{bound_text(nbytes, ops)} over the {n_last} iterations the "
+              f"plain version runs; "
               f"launches a frame 1  [{card}]")
         check(min(n_found) > 0, f"2d: a K4 {what} call had no found point")
         check(same, f"2d: K4's {what} call is not deterministic")
@@ -3770,7 +3827,7 @@ def pose_kernels_phase(torch, dev, card, kernels, add_row, bound_text,
     plain = time_ms(lambda _: kesm.esm_plain(*a), torch, reps=5)
     dev_k, n_k = device_us(call, torch, match="sbi_esm")
     # Read: two templates and the target's gradients; written: R, t, score.
-    nbytes, ops = h * w * 16 + 28, ESM_OPS * h * w * a[3]
+    nbytes, ops = h * w * 16 + 28, esm_ops(a)
     add_row(kernels["sbi_esm"], ms_k, plain, dev_k, nbytes, ops,
             err=max(d_R, d_t))
     print(f"[2d] K5 {h}x{w} SBIs of phase 4's {n_frames} frames (each "
@@ -3784,6 +3841,22 @@ def pose_kernels_phase(torch, dev, card, kernels, add_row, bound_text,
     check(same, "2d: K5 is not deterministic")
     check(d_R <= SE2_TOL and d_t <= SE2_TOL and d_s <= 1e-4,
           "2d: K5 differs from its plain version")
+    tex = synth.make_texture(np.random.default_rng(1), device=dev)
+    for h, w, frame in ((45, 80, "1280x720"), (67, 120, "1920x1080")):
+        moving, target = [sbi.make_sbi(tex[y: y + 2 * h, x: x + 2 * w], 0.75)
+                          for y, x in ((40, 60), (42, 57))]
+        a = (moving.template, target.template, target.jac, 10)
+        r1, r2, ref = kesm.esm(*a), kesm.esm(*a), kesm.esm_plain(*a)
+        same = all(torch.equal(x, y) for x, y in zip(r1, r2))
+        d_R, d_t = max_abs_diff(r1[0], ref[0]), max_abs_diff(r1[1], ref[1])
+        d_s = abs(float(r1[2]) - float(ref[2])) / max(abs(float(ref[2])), 1.0)
+        print(f"[2d] K5 at {h}x{w} (the SBI of a {frame} frame; "
+              f"{h * w * 21 / 1024:.0f} kB of shared memory): two "
+              f"launches bit-identical {same}; kernel vs plain: |dR| "
+              f"{d_R:.2e} |dt| {d_t:.2e} (bar {SE2_TOL:.0e}), score {d_s:.2e} "
+              f"relative (bar 1e-4)  [{card}]")
+        check(same and d_R <= SE2_TOL and d_t <= SE2_TOL and d_s <= 1e-4,
+              f"2d: K5 at {h}x{w} differs from its plain version")
     for name in ("pose_gn", "sbi_esm"):
         k = kernels[name]
         print(f"[2d] {name} summed over a tracked frame's calls: kernel "

@@ -12,9 +12,10 @@ the outermost of these functions it runs in: ``pose_gn`` (K4's loop),
 ``subpix_refine``, ``ssd_search``, ``build_frame_tracking`` (the
 frontend), and "the rest". An operation that makes no tensor on the
 device (a view, a shape query) counts too, so this is a proxy for the
-kernels a CUDA graph of the step holds, not a count of them. On the CPU
-(``--device cpu``, the default) every kernel wrapper runs its plain
-version; on a card, K1-K5 are one operation each. Prints one JSON line.
+kernels a CUDA graph of the step holds, not a count of them. On the
+card (the default) K1-K5 are one operation each; with ``--device cpu``
+every kernel wrapper runs its plain version instead, which counts the
+operations of the loops the kernels replace. Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--size", type=int, nargs=2, default=(320, 240))
     ap.add_argument("--points", type=int, default=2048)
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     from ptam_cg_tpu_torch.io import synth
     from ptam_cg_tpu_torch.kernels import pose_gn

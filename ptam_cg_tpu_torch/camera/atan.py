@@ -3,7 +3,9 @@
 Normalized parameters [fx fy cx cy w] scale with the image size exactly
 as the reference does, including the -0.5 pixel centre offset. The unit
 frame buffer (UFB) projections serve the AR compositor (``viz/ar.py``);
-``param_derivs`` serves the calibrator (``camera/calibrator.py``).
+``param_derivs`` serves the calibrator (``camera/calibrator.py``);
+``project_points`` and ``pose_jacobian`` the tracker and its pose loop
+(``models/tracker.py``, ``kernels/pose_gn.py``).
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import math
 from typing import Tuple
 
 import torch
+
+from ptam_cg_tpu_torch.utils import se3 as se3lib
 
 Tensor = torch.Tensor
 
@@ -154,6 +158,34 @@ def project_derivs(cam_xy: Tensor, cam: Camera) -> Tensor:
     j11 = fy * (frac_dy * y + factor)
     return torch.stack([torch.stack([j00, j01], dim=-1),
                         torch.stack([j10, j11], dim=-1)], dim=-2)
+
+
+def project_points(pose, pts_w: Tensor, cam: Camera, image_size):
+    """World points (..., 3) through the pose (an ``SE3``) and the camera:
+    (p_cam, z=1 coords, pixels, in front and inside the camera's radius
+    and the image)."""
+    W, H = image_size
+    p_cam = pts_w @ pose.R.T + pose.t
+    z = p_cam[..., 2]
+    z_ok = z > 0.001
+    safe_z = torch.where(z_ok, z, 1.0)
+    z1 = p_cam[..., :2] / safe_z[..., None]
+    r_ok = torch.sum(z1 * z1, dim=-1) <= cam.largest_radius ** 2
+    pix = project(z1, cam)
+    in_im = ((pix[..., 0] >= 0) & (pix[..., 1] >= 0)
+             & (pix[..., 0] <= W) & (pix[..., 1] <= H))
+    ok = z_ok & r_ok & in_im & project_valid(z1, cam)
+    return p_cam, z1, pix, ok
+
+
+def pose_jacobian(p_cam: Tensor, cam_derivs: Tensor) -> Tensor:
+    """(N, 2, 6) d(pixel)/d(left-multiplied twist)."""
+    z = p_cam[..., 2]
+    inv_z = 1.0 / torch.where(torch.abs(z) < 1e-9, 1e-9, z)
+    gen = se3lib.motion_jacobian(p_cam)                     # (N, 6, 3)
+    plane = (gen[..., :2] - p_cam[..., None, :2]
+             * gen[..., 2:] * inv_z[..., None, None]) * inv_z[..., None, None]
+    return cam_derivs @ plane.transpose(-1, -2)
 
 
 def param_derivs(cam_xy: Tensor, cam: Camera) -> Tensor:

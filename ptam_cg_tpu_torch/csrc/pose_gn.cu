@@ -263,8 +263,7 @@ __global__ void __launch_bounds__(THREADS, 1) pose_gn_kernel(
     const float* __restrict__ v2, const int64_t* __restrict__ level, Cam cam,
     int N, int W, int H, int n_iters, int override_after, float override_val,
     int kind, float sigma_scale, float* __restrict__ R_out,
-    float* __restrict__ t_out, float* __restrict__ w_out,
-    int* __restrict__ iters_out) {
+    float* __restrict__ t_out, float* __restrict__ w_out) {
   __shared__ float sR[9], st[3];
   __shared__ float key[MAX_N];
   __shared__ uint8_t okm[MAX_N];
@@ -487,7 +486,6 @@ __global__ void __launch_bounds__(THREADS, 1) pose_gn_kernel(
   }
   if (tid < 9) R_out[tid] = sR[tid];
   if (tid < 3) t_out[tid] = st[tid];
-  if (tid == 0 && iters_out != nullptr) *iters_out = it;
 }
 
 }  // namespace
@@ -495,8 +493,8 @@ __global__ void __launch_bounds__(THREADS, 1) pose_gn_kernel(
 // One launch of K4 on `stream`: the pose (R (3,3), t (3,)), N points
 // (pts (N,3) f32, found (N,) bool, v2found (N,2) f32, level (N,) int64),
 // the camera's fields (device pointers), the loop's settings, and the
-// outputs R_out (3,3), t_out (3,), w_out (N,) and, when not null,
-// iters_out (the iterations run). Returns cudaGetLastError().
+// outputs R_out (3,3), t_out (3,), w_out (N,). Returns
+// cudaGetLastError().
 extern "C" int pose_gn(const float* R0, const float* t0, const float* pts,
                        const uint8_t* found, const float* v2found,
                        const int64_t* level, const float* focal,
@@ -506,14 +504,13 @@ extern "C" int pose_gn(const float* R0, const float* t0, const float* pts,
                        int W, int H, int n_iters, int override_after,
                        float override_val, int kind, float sigma_scale,
                        float* R_out, float* t_out, float* w_out,
-                       int* iters_out, cudaStream_t stream) {
+                       cudaStream_t stream) {
   if (N < 1 || N > MAX_N || kind < TUKEY || kind > LSQ)
     return (int)cudaErrorInvalidValue;
   const Cam cam = {focal, center, two_tan, winv, dist_on, largest_radius,
                    max_r};
   pose_gn_kernel<<<1, THREADS, 0, stream>>>(
       R0, t0, pts, found, v2found, level, cam, N, W, H, n_iters,
-      override_after, override_val, kind, sigma_scale, R_out, t_out, w_out,
-      iters_out);
+      override_after, override_val, kind, sigma_scale, R_out, t_out, w_out);
   return (int)cudaGetLastError();
 }

@@ -37,8 +37,12 @@
 // the SE2 of the one before, the gradients need the whole warp, the
 // solve needs every sum; a block barrier separates each step (four an
 // iteration) and the 4x4 solve and the update run on one thread. So the
-// kernel is one block of 512 threads (up to 4 pixels a thread) that
-// stages the three images in shared memory once and keeps the warp there.
+// kernel is one block of 512 threads that stages the three images in
+// shared memory once and keeps the warp there: 21 bytes a pixel of dynamic
+// shared memory (four float planes, the warp, its validity), so one block
+// takes up to MAX_PIX pixels in the 227 kB a block may opt into on the
+// H100, beside its 1 kB of static shared memory. That is the SBI of frames
+// up to 1920x1080 (67x120, 8,040 pixels, 169 kB).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,7 +51,9 @@ namespace {
 
 constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_PIX = 2048;              // kernels/sbi_esm.py MAX_PIX
+constexpr int MAX_PIX = 11008;             // kernels/sbi_esm.py MAX_PIX
+constexpr int PIX_BYTES = 5 * sizeof(float) + sizeof(uint8_t);
+constexpr int DEFAULT_SMEM = 48 * 1024;    // without the opt-in
 constexpr int NSUM = 15;                   // 10 of J^T J, 4 of J^T d, score
 
 __device__ __forceinline__ float mul(float a, float b) {
@@ -121,15 +127,16 @@ __global__ void __launch_bounds__(THREADS, 1) sbi_esm_kernel(
     const float* __restrict__ moving, const float* __restrict__ target,
     const float* __restrict__ target_jac, int h, int w, int n_iter,
     float* __restrict__ out) {
-  __shared__ float mt[MAX_PIX], tt[MAX_PIX], tjx[MAX_PIX], tjy[MAX_PIX];
-  __shared__ float warped[MAX_PIX];
-  __shared__ uint8_t wvalid[MAX_PIX];
+  extern __shared__ float smem[];
+  const int hw = h * w;
+  float *mt = smem, *tt = smem + hw, *tjx = smem + 2 * hw,
+        *tjy = smem + 3 * hw, *warped = smem + 4 * hw;
+  uint8_t* wvalid = reinterpret_cast<uint8_t*>(smem + 5 * hw);
   __shared__ float red[WARPS][NSUM];
   __shared__ float tot[NSUM];
   __shared__ float sR[4], st[2], stx[2], s_off, s_score;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int hw = h * w;
   const int icx = w / 2, icy = h / 2;
   const float cx = (float)icx, cy = (float)icy;
   for (int p = tid; p < hw; p += THREADS) {
@@ -237,12 +244,19 @@ __global__ void __launch_bounds__(THREADS, 1) sbi_esm_kernel(
 // One launch of K5 on `stream`: the moving template (h, w), the target
 // template (h, w) and its gradients (h, w, 2), all f32 and contiguous;
 // n_iter iterations. out (7,): R (2x2 row-major), t (2), the score.
-// Returns cudaGetLastError().
+// Above 48 kB of shared memory the launch opts in to more first (a host
+// call that stream capture allows). Returns the first CUDA error.
 extern "C" int sbi_esm(const float* moving, const float* target,
                        const float* target_jac, int h, int w, int n_iter,
                        float* out, cudaStream_t stream) {
   if (h < 3 || w < 3 || h * w > MAX_PIX) return (int)cudaErrorInvalidValue;
-  sbi_esm_kernel<<<1, THREADS, 0, stream>>>(moving, target, target_jac, h, w,
-                                            n_iter, out);
+  const int smem = h * w * PIX_BYTES;
+  if (smem > DEFAULT_SMEM) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sbi_esm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  sbi_esm_kernel<<<1, THREADS, smem, stream>>>(moving, target, target_jac, h,
+                                               w, n_iter, out);
   return (int)cudaGetLastError();
 }

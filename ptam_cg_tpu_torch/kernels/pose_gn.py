@@ -16,9 +16,6 @@ once the JAX loop would have exited. The kernel exits there instead;
 both give the same result. Only the sums (``J^T W J``, ``J^T W e``, the
 LSQ numerator) and the 6x6 algebra round otherwise than the plain
 version: per-point arithmetic is separately rounded in its order.
-
-``project_points`` and ``pose_jacobian`` are the tracker's projection
-and pose Jacobian (``tracker._project_points``, ``_pose_jacobian``).
 """
 
 from __future__ import annotations
@@ -52,33 +49,6 @@ CAM_FIELDS = ("focal", "center", "two_tan", "winv", "distortion_enabled",
               "largest_radius", "max_r")
 
 
-def project_points(pose: SE3, pts_w: Tensor, cam: atan.Camera, image_size):
-    """(p_cam, z=1 coords, pixels, in front, inside the camera's radius,
-    inside the image) of world points."""
-    W, H = image_size
-    p_cam = pts_w @ pose.R.T + pose.t
-    z = p_cam[..., 2]
-    z_ok = z > 0.001
-    safe_z = torch.where(z_ok, z, 1.0)
-    z1 = p_cam[..., :2] / safe_z[..., None]
-    r_ok = torch.sum(z1 * z1, dim=-1) <= cam.largest_radius ** 2
-    pix = atan.project(z1, cam)
-    in_im = ((pix[..., 0] >= 0) & (pix[..., 1] >= 0)
-             & (pix[..., 0] <= W) & (pix[..., 1] <= H))
-    ok = z_ok & r_ok & in_im & atan.project_valid(z1, cam)
-    return p_cam, z1, pix, ok
-
-
-def pose_jacobian(p_cam: Tensor, cam_derivs: Tensor) -> Tensor:
-    """(N, 2, 6) d(pixel)/d(left-multiplied twist)."""
-    z = p_cam[..., 2]
-    inv_z = 1.0 / torch.where(torch.abs(z) < 1e-9, 1e-9, z)
-    gen = se3lib.motion_jacobian(p_cam)                     # (N, 6, 3)
-    plane = (gen[..., :2] - p_cam[..., None, :2]
-             * gen[..., 2:] * inv_z[..., None, None]) * inv_z[..., None, None]
-    return cam_derivs @ plane.transpose(-1, -2)
-
-
 def pose_gn_plain(pose: SE3, cam: atan.Camera, image_size, pts_w: Tensor,
                   found: Tensor, v2found: Tensor, level: Tensor, n_iters: int,
                   override_after: int, override_val: float,
@@ -95,9 +65,9 @@ def pose_gn_plain(pose: SE3, cam: atan.Camera, image_size, pts_w: Tensor,
     settled = torch.zeros((), dtype=torch.bool, device=dev)
     for it in range(n_iters):
         pose_i = SE3(R, t)
-        p_cam, z1, pix, proj_ok = project_points(pose_i, pts_w, cam,
-                                                 image_size)
-        J = pose_jacobian(p_cam, atan.project_derivs(z1, cam))
+        p_cam, z1, pix, proj_ok = atan.project_points(pose_i, pts_w, cam,
+                                                      image_size)
+        J = atan.pose_jacobian(p_cam, atan.project_derivs(z1, cam))
         err = (v2found - pix) * sqrt_inv_noise[:, None]
         ok = found & proj_ok
         err_sq = torch.sum(err * err, dim=-1)
@@ -162,7 +132,7 @@ def _lib():
         fn.argtypes = ([ctypes.c_void_p] * 13
                        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
                                                ctypes.c_float]
-                       + [ctypes.c_void_p] * 5)
+                       + [ctypes.c_void_p] * 4)
         fn.restype = ctypes.c_int
     return fn
 
@@ -170,15 +140,13 @@ def _lib():
 def pose_gn(pose: SE3, cam: atan.Camera, image_size, pts_w: Tensor,
             found: Tensor, v2found: Tensor, level: Tensor, n_iters: int,
             override_after: int, override_val: float,
-            mest_kind: int = mest.TUKEY, *,
-            iterations: Tensor | None = None):
+            mest_kind: int = mest.TUKEY):
     """The robust Gauss-Newton pose loop over N world points ``pts_w``
     (N, 3) float32 with their found flags (N,) bool, found level-0
     positions ``v2found`` (N, 2) float32 and search levels (N,) int64:
     ``n_iters`` iterations at most, sigma^2 from the errors until
     ``override_after`` then ``override_val``, weights of estimator
-    ``mest_kind``. Returns (pose, final weights (N,)). On the card,
-    ``iterations`` (a (1,) int32 CUDA tensor) gets the iterations run."""
+    ``mest_kind``. Returns (pose, final weights (N,))."""
     if pts_w.device.type == "cpu":
         return pose_gn_plain(pose, cam, image_size, pts_w, found, v2found,
                              level, n_iters, override_after, override_val,
@@ -186,8 +154,6 @@ def pose_gn(pose: SE3, cam: atan.Camera, image_size, pts_w: Tensor,
     validate(pose, cam, pts_w, found, v2found, level, n_iters, mest_kind)
     if pts_w.device.type != "cuda":
         raise ValueError(f"pose_gn: need CUDA tensors, got {pts_w.device}")
-    if iterations is not None:
-        _expect(iterations, "iterations", (1,), torch.int32, pts_w.device)
     N = pts_w.shape[0]
     W, H = image_size
     R_out = torch.empty((3, 3), dtype=torch.float32, device=pts_w.device)
@@ -202,7 +168,5 @@ def pose_gn(pose: SE3, cam: atan.Camera, image_size, pts_w: Tensor,
                     N, int(W), int(H), int(n_iters), int(override_after),
                     float(override_val), int(mest_kind),
                     float(mest._SIGMA_SCALE[mest_kind]), R_out.data_ptr(),
-                    t_out.data_ptr(), w_out.data_ptr(),
-                    0 if iterations is None else iterations.data_ptr(),
-                    stream), "pose_gn")
+                    t_out.data_ptr(), w_out.data_ptr(), stream), "pose_gn")
     return SE3(R_out, t_out), w_out

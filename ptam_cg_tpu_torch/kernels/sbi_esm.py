@@ -27,23 +27,20 @@ import torch
 
 from ptam_cg_tpu_torch.kernels import _build
 from ptam_cg_tpu_torch.utils import geometry as geomlib
+from ptam_cg_tpu_torch.utils import se3 as se3lib
 
 Tensor = torch.Tensor
 
 #: The most pixels one launch takes (the source's MAX_PIX: three images
-#: and the warp in shared memory).
-MAX_PIX = 2048
+#: and the warp in shared memory, 21 bytes a pixel of the H100's 227 kB a
+#: block). The SBI of a 1920x1080 frame is 67x120, 8,040 pixels.
+MAX_PIX = 11008
 
 #: Kernel launches made by ``esm`` in this process.
 launches = 0
 #: The same launches by CUDA stream (raw handle; 0 is the legacy default
 #: stream), counted with ``launches`` by ``_build.count_launch``.
 launches_by_stream: dict = {}
-
-
-def so2_exp(theta: Tensor) -> Tensor:
-    c, s = torch.cos(theta), torch.sin(theta)
-    return torch.stack([torch.stack([c, -s]), torch.stack([s, c])])
 
 
 def esm_plain(moving: Tensor, target: Tensor, target_jac: Tensor,
@@ -109,7 +106,7 @@ def esm_plain(moving: Tensor, target: Tensor, target_jac: Tensor,
         JTJ = torch.einsum("hwi,hwj->ij", J, J)
         upd = geomlib.spd_solve(JTJ + 1e-8 * eye4, JTd)
         t_cc = R_cc @ (-upd[:2]) + t_cc
-        R_cc = R_cc @ so2_exp(-upd[2])
+        R_cc = R_cc @ se3lib.so2_exp(-upd[2])
         mean_off = mean_off - upd[3]
     return R_cc, t_cc, score
 

@@ -183,8 +183,8 @@ def _search_subset(m: MapState | TrackView, frame: TrackFeatures,
     (``bf16_cross``: ``ssd_search``'s)."""
     W, H = image_size
     pts_w = m.point_pos[idx]
-    p_cam, z1, pix, proj_ok = kpose.project_points(pose, pts_w, cam,
-                                                   image_size)
+    p_cam, z1, pix, proj_ok = atan.project_points(pose, pts_w, cam,
+                                                  image_size)
     warp = patchops.search_level_and_warp(
         p_cam, pose.R, m.point_right_w[idx], m.point_down_w[idx],
         atan.project_derivs(z1, cam))
@@ -269,8 +269,8 @@ def track_map(m: MapState | TrackView, frame: TrackFeatures, pose: SE3,
     mest_kind = mest.estimator_id(cfg.mestimator)
 
     # ---- PVS: classify every map point ----
-    p_cam, z1, pix, proj_ok = kpose.project_points(pose, m.point_pos, cam,
-                                                   image_size)
+    p_cam, z1, pix, proj_ok = atan.project_points(pose, m.point_pos, cam,
+                                                  image_size)
     warp = patchops.search_level_and_warp(
         p_cam, pose.R, m.point_right_w, m.point_down_w,
         atan.project_derivs(z1, cam))
@@ -369,7 +369,7 @@ def track_map(m: MapState | TrackView, frame: TrackFeatures, pose: SE3,
     found_stats = count(all_level, all_found, LEVELS)
 
     # ---- scene depth ----
-    zs = kpose.project_points(final_pose, all_pts, cam, image_size)[0][..., 2]
+    zs = atan.project_points(final_pose, all_pts, cam, image_size)[0][..., 2]
     nf = torch.sum(all_found.to(torch.float32))
     zsum = torch.sum(torch.where(all_found, zs, 0.0))
     zsq = torch.sum(torch.where(all_found, zs * zs, 0.0))

@@ -54,9 +54,6 @@ def make_sbi(level3: Tensor, blur: float = 2.5) -> SBI:
     return SBI(template=tmpl, jac=torch.stack([gx, gy], dim=-1))
 
 
-so2_exp = kesm.so2_exp
-
-
 def iterate_pos_rel_to_target(moving: SBI, target: SBI,
                               n_iterations: int = 10) -> Tuple[SE2, Tensor]:
     """ESM alignment: the SE2 warping ``moving`` onto ``target``, one K5

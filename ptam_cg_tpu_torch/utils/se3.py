@@ -71,6 +71,12 @@ def so3_exp(w: Tensor) -> Tensor:
     return _eye_like(K) + A[..., None, None] * K + B[..., None, None] * KK
 
 
+def so2_exp(theta: Tensor) -> Tensor:
+    """Angle -> (2, 2) rotation matrix."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    return torch.stack([torch.stack([c, -s]), torch.stack([s, c])])
+
+
 def so3_log(R: Tensor) -> Tensor:
     """Rotation matrix -> rotation vector, theta in [0, pi]."""
     trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]

@@ -23,8 +23,9 @@ Inputs are made from numpy seeds and fed to both packages.
   the SBI sizes of 320x240 (15x20) and 640x480 (30x40) frames: SE2 within
   1e-5, score within 1e-4 relative (a sum of ~1000 squares).
 - On the card (``cuda`` marker; skipped without a GPU): each kernel
-  against its plain version at the same bars, two launches bit-identical,
-  and K4's early exit. A GPU machine need not have JAX: run them with
+  against its plain version at the same bars (K5 also at the SBIs of
+  1280x720 and 1920x1080 frames), two launches bit-identical, and K4's
+  early exit. A GPU machine need not have JAX: run them with
   ``python -m pytest tests/test_torch_pose_kernels.py -m cuda
   --noconftest``.
 """
@@ -268,12 +269,16 @@ def test_sbi_esm_refuses_what_the_kernel_cannot_take():
     m, t = torch.zeros(30, 40), torch.zeros(30, 40)
     jac = torch.zeros(30, 40, 2)
     kesm.validate(m, t, jac, 10)
+    # The SBI of a 1920x1080 frame fits one block.
+    kesm.validate(torch.zeros(67, 120), torch.zeros(67, 120),
+                  torch.zeros(67, 120, 2), 10)
+    big = (kesm.MAX_PIX // 128 + 1, 128)
     bad = {
         "dtype": (m.double(), t, jac),
         "target dtype": (m, t.half(), jac),
         "strided": (m, t, torch.zeros(2, 30, 40).permute(1, 2, 0)),
-        "capacity": (torch.zeros(60, 80), torch.zeros(60, 80),
-                     torch.zeros(60, 80, 2)),
+        "capacity": (torch.zeros(big), torch.zeros(big),
+                     torch.zeros(*big, 2)),
         "shape": (m, torch.zeros(30, 41), jac),
         "rank": (m[0], t[0], jac[0]),
     }
@@ -310,12 +315,15 @@ def test_pose_gn_kernel_matches_plain(cuda, kind, N, override_val):
 
 @pytest.mark.cuda
 def test_pose_gn_kernel_exits_where_the_loop_settles(cuda):
+    """As ``test_pose_gn_plain_settles_like_jax``: the kernel's 7- and
+    10-iteration results are equal bit for bit."""
     d = gn_inputs(1152, seed=3, noise=False)
     args = torch_args(d, "cuda")
-    its = torch.zeros(1, dtype=torch.int32, device=cuda)
-    pose, w = kpose.pose_gn(*args, 10, 5, 16.0, tmest.TUKEY, iterations=its)
+    pose, w = kpose.pose_gn(*args, 10, 5, 16.0, tmest.TUKEY)
+    pose7, w7 = kpose.pose_gn(*args, 7, 5, 16.0, tmest.TUKEY)
     ref_pose, ref_w = kpose.pose_gn_plain(*args, 10, 5, 16.0, tmest.TUKEY)
-    assert int(its) == 7
+    assert torch.equal(pose.R, pose7.R) and torch.equal(pose.t, pose7.t)
+    assert torch.equal(w, w7)
     assert_pose_close(pose.R.cpu(), pose.t.cpu(), ref_pose.R.cpu().numpy(),
                       ref_pose.t.cpu().numpy())
     np.testing.assert_allclose(w.cpu().numpy(), ref_w.cpu().numpy(),
@@ -323,8 +331,10 @@ def test_pose_gn_kernel_exits_where_the_loop_settles(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hw", [(15, 20), (30, 40)])
+@pytest.mark.parametrize("hw", [(15, 20), (30, 40), (45, 80), (67, 120)])
 def test_sbi_esm_kernel_matches_plain(cuda, hw):
+    """At the SBIs of 320x240, 640x480, 1280x720 and 1920x1080 frames; the
+    last two take more than the default 48 kB of shared memory."""
     from ptam_cg_tpu_torch.io import synth as tsynth
     h, w = hw
     tex = tsynth.make_texture(np.random.default_rng(1), device="cpu")
