@@ -106,6 +106,7 @@ from ptam_cg_tpu_torch.models import mapmaker as mmlib
 from ptam_cg_tpu_torch.models import programs
 from ptam_cg_tpu_torch.models import tracker as trklib
 from ptam_cg_tpu_torch.utils import se3 as se3lib
+from ptam_cg_tpu_torch.utils import spans
 from ptam_cg_tpu_torch.utils import tree
 from ptam_cg_tpu_torch.utils.se3 import SE3
 
@@ -363,7 +364,8 @@ class SLAMEngine:
         for inl, outl in deltas:
             m.point_inlier += inl
             m.point_outlier += outl
-        slot = mm.step(newest)
+        with spans.span("mapmaker.step"):
+            slot = mm.step(newest)
         publish = ms.copy_map(mm.map)
         event = None
         if self._map_stream is not None:
@@ -477,7 +479,9 @@ class SLAMEngine:
             self._info_host.copy_(info, non_blocking=True)
             done = torch.cuda.Event()
             done.record()
-            done.synchronize()
+            with spans.span("engine.read_info"):
+                done.synchronize()
+            spans.synced()
             info = self._info_host
         quality, lost, n_found, need_kf, n_points = info.tolist()
         self._last_quality, self._last_n_found = quality, n_found
@@ -490,7 +494,14 @@ class SLAMEngine:
         """One frame (System::UpdateFrame -> Tracker::TrackFrame): an (H, W)
         uint8 or float32 image, on the host or on the device. The programs
         copy it to the device in its own dtype (from the host without a
-        sync) and cast it there."""
+        sync) and cast it there. With the span recorder on, the frame is
+        a ``process_frame`` span (``utils/spans.py``)."""
+        with spans.span("process_frame", self.frame_idx) as s:
+            info = self._frame(im)
+            s.note(info.stage)
+        return info
+
+    def _frame(self, im) -> FrameInfo:
         if self.async_mapping:
             self._raise_worker_error()
             if self._closed:
@@ -626,16 +637,17 @@ class SLAMEngine:
                     and mm.n_kfs() + mm.queue_size() < m.kf_R.shape[0]):
                 # The program's next replay overwrites these: copies go
                 # to the queue. p["im"] still holds that frame.
-                res, pst = p["out"].result, p["out"].state
-                meas = dict(point=res.meas_point.clone(),
-                            pos=res.meas_pos.clone(),
-                            level=res.meas_level.clone(),
-                            subpix=res.meas_subpix.clone(),
-                            valid=res.meas_valid.clone())
-                kf = (self._build(p["im"]), _copy_pose(pst.pose), meas,
-                      pst.depth_mean.clone(), pst.depth_sigma.clone())
-                self._hand_over(kf)
-                mm.add_keyframe(*kf)
+                with spans.span("engine.keyframe"):
+                    res, pst = p["out"].result, p["out"].state
+                    meas = dict(point=res.meas_point.clone(),
+                                pos=res.meas_pos.clone(),
+                                level=res.meas_level.clone(),
+                                subpix=res.meas_subpix.clone(),
+                                valid=res.meas_valid.clone())
+                    kf = (self._build(p["im"]), _copy_pose(pst.pose), meas,
+                          pst.depth_mean.clone(), pst.depth_sigma.clone())
+                    self._hand_over(kf)
+                    mm.add_keyframe(*kf)
                 self.frames_since_kf = 0
                 added_kf = True
 
@@ -644,7 +656,8 @@ class SLAMEngine:
         # buffers.
         prog = self._program("track", im.dtype)
         P = m.point_pos.shape[0]
-        rand_coarse, rand_fine = self.draws.track(P, out=prog.rand)
+        with spans.span("engine.draws"):
+            rand_coarse, rand_fine = self.draws.track(P, out=prog.rand)
         fo, new_inl, new_outl, info = self._run(
             prog, st, m, im, self._prev_sbi_track, rand_coarse, rand_fine,
             mm.wiggle_depth_norm)
@@ -670,7 +683,8 @@ class SLAMEngine:
         # One mapping pass.
         mm.map = dataclasses.replace(m, point_inlier=new_inl.clone(),
                                      point_outlier=new_outl.clone())
-        slot = mm.step(self.newest_kf)
+        with spans.span("mapmaker.step"):
+            slot = mm.step(self.newest_kf)
         self.map = mm.map
         if slot is not None:
             self.newest_kf = slot

@@ -63,6 +63,7 @@ import numpy as np
 import torch
 
 from ptam_cg_tpu_torch.kernels import _build
+from ptam_cg_tpu_torch.utils import spans
 from ptam_cg_tpu_torch.utils import tree
 
 Tensor = torch.Tensor
@@ -320,9 +321,11 @@ class Graph:
 
     ``inputs``: the static inputs, to fill before a replay.
     ``warm_s``: seconds of the warm-up on the host clock; ``capture_s``:
-    of the capture and the instantiation. ``launches``: {kernel wrapper
-    module or function name: launches or calls a replay}, outside
-    conditional bodies; ``bodies``: the same for each conditional body
+    of the capture and the instantiation (the ``graph.warm`` and
+    ``graph.capture`` spans of ``utils/spans.py``). ``launches``:
+    {kernel wrapper module or function name: launches or calls a
+    replay}, outside conditional bodies; ``bodies``: the same for each
+    conditional body
     that has any,
     and ``body_runs`` (int64 on the card) the times each body ran.
     ``n_if``, ``n_while``: IF and WHILE nodes. ``debug_path``: a file to
@@ -339,11 +342,13 @@ class Graph:
         caller = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(caller)
-        t0 = time.perf_counter()
+        t0 = time.time_ns()
         with _build.tally() as warm_tally, torch.cuda.stream(side), warm():
             fn(*clone(inputs))
         caller.wait_stream(side)
-        self.warm_s = time.perf_counter() - t0
+        t1 = time.time_ns()
+        self.warm_s = (t1 - t0) / 1e9
+        spans.add("graph.warm", t0, t1)
         # The warm-up's calls were counted as they ran.
         _count({k: n for k, n in warm_tally.items()
                 if not isinstance(k, str)}, caller.cuda_stream,
@@ -358,7 +363,7 @@ class Graph:
         # Conditional bodies allocate from the graph's pool: name it here
         # (a graph's own pool id is not known until its capture ends).
         self.pool = torch.cuda.graph_pool_handle() if pool is None else pool
-        t0 = time.perf_counter()
+        t0 = time.time_ns()
         with _capture_under_way():
             _LOCAL.graph = self
             try:
@@ -377,7 +382,9 @@ class Graph:
                 _LOCAL.graph = None
         if keep:
             self.graph.instantiate()
-        self.capture_s = time.perf_counter() - t0
+        t1 = time.time_ns()
+        self.capture_s = (t1 - t0) / 1e9
+        spans.add("graph.capture", t0, t1)
         if keep:
             self.graph.debug_dump(debug_path)
         self._settled = [0] * len(self.bodies)

@@ -37,6 +37,7 @@ from ptam_cg_tpu_torch.models import mapmaker as mmlib
 from ptam_cg_tpu_torch.models import relocalizer as reloclib
 from ptam_cg_tpu_torch.models import tracker as trklib
 from ptam_cg_tpu_torch.ops import sbi as sbiops
+from ptam_cg_tpu_torch.utils import spans
 from ptam_cg_tpu_torch.utils import tree
 
 Tensor = torch.Tensor
@@ -85,7 +86,13 @@ class TrackProgram(Program):
     ``wiggle_depth_norm`` (a 0-dim tensor, refilled when the float
     changes). The view's keyframe atlases are in the dtype of
     ``cfg.frontend`` (``map_state.atlas_dtype``), as the frame's atlas
-    is. K1 launches once, K2 four times, K4 twice and K5 once a call."""
+    is. K1 launches once, K2 four times, K4 twice and K5 once a call.
+
+    With the span recorder on (``utils/spans.py``), a call is a
+    ``track.fill`` span and a ``track.replay`` span, and the program's
+    stage boundaries (``spans.STAGES``) are marked: in the graph, when it
+    was captured with the recorder on (``marks``; None otherwise), or by
+    host stamps in an eager call."""
 
     name = "track_frame_from_image"
 
@@ -110,6 +117,7 @@ class TrackProgram(Program):
                                       device=dev) for _ in range(2))
         self.wiggle = torch.ones((), dtype=torch.float32, device=dev)
         self._wiggle_value = 1.0
+        self.marks = None
 
     @staticmethod
     def key_of(cfg, frame_dtype, capacity):
@@ -124,6 +132,7 @@ class TrackProgram(Program):
 
     def _fn(self, state, view, frame, prev_sbi, rand, wiggle):
         cfg = self.cfg
+        spans.stage("frontend")
         fo = trklib.track_frame_from_image(
             state, view, frame.to(torch.float32), prev_sbi, self.cam,
             self.image_size, self.cam_params, cfg.tracker, cfg.frontend,
@@ -144,32 +153,57 @@ class TrackProgram(Program):
             buf.copy_(x)
         prev_sbi.template.copy_(fo.sbi_track.template)
         prev_sbi.jac.copy_(fo.sbi_track.jac)
+        spans.stage(spans.END)
         out = trklib.FusedFrameOutput(state=state, result=res,
                                       sbi_score=fo.sbi_score, sbi=fo.sbi,
                                       sbi_track=prev_sbi)
         return TrackOutput(out, inl, outl, info)
+
+    def capture(self) -> None:
+        if self.graph is None:
+            self.marks = (spans.StageMarks(device=True) if spans.enabled
+                          else None)
+            with spans.marking(self.marks):
+                super().capture()
+
+    def run(self):
+        if not spans.enabled:
+            return super().run()
+        if not self.graphs:
+            marks = spans.StageMarks(device=False)
+            with spans.marking(marks), spans.span("track.replay"):
+                out = super().run()
+            spans.stamped(marks)
+            return out
+        self.capture()
+        spans.before_replay(self.marks)
+        with spans.span("track.replay"):
+            out = self.graph.replay(self.name)
+        spans.replayed(self.marks)
+        return out
 
     def __call__(self, state: trklib.TrackerState, view, im, prev_sbi,
                  rand_coarse: Tensor, rand_fine: Tensor,
                  wiggle_depth_norm) -> TrackOutput:
         """One frame. ``view``: a ``TrackView`` or a MapState. The
         returned state carries ``state``'s generator."""
-        for buf, x in zip(_state_tensors(self.state),
-                          _state_tensors(state)):
-            graphs.fill(buf, x)
-        for buf, x in zip(self.view, trklib.make_track_view(view)):
-            graphs.fill(buf, x)
-        graphs.fill(self.frame, im)
-        graphs.fill(self.prev_sbi.template, prev_sbi.template)
-        graphs.fill(self.prev_sbi.jac, prev_sbi.jac)
-        graphs.fill(self.rand[0], rand_coarse)
-        graphs.fill(self.rand[1], rand_fine)
-        if isinstance(wiggle_depth_norm, Tensor):
-            graphs.fill(self.wiggle, wiggle_depth_norm)
-            self._wiggle_value = None
-        elif wiggle_depth_norm != self._wiggle_value:
-            self.wiggle.fill_(float(wiggle_depth_norm))
-            self._wiggle_value = wiggle_depth_norm
+        with spans.span("track.fill"):
+            for buf, x in zip(_state_tensors(self.state),
+                              _state_tensors(state)):
+                graphs.fill(buf, x)
+            for buf, x in zip(self.view, trklib.make_track_view(view)):
+                graphs.fill(buf, x)
+            graphs.fill(self.frame, im)
+            graphs.fill(self.prev_sbi.template, prev_sbi.template)
+            graphs.fill(self.prev_sbi.jac, prev_sbi.jac)
+            graphs.fill(self.rand[0], rand_coarse)
+            graphs.fill(self.rand[1], rand_fine)
+            if isinstance(wiggle_depth_norm, Tensor):
+                graphs.fill(self.wiggle, wiggle_depth_norm)
+                self._wiggle_value = None
+            elif wiggle_depth_norm != self._wiggle_value:
+                self.wiggle.fill_(float(wiggle_depth_norm))
+                self._wiggle_value = wiggle_depth_norm
         self.state.generator = state.generator
         return self.run()
 

@@ -21,6 +21,10 @@ masked, fixed-count forms, so the step issues no host sync:
 Random subsets: the coarse and fine uniforms can be passed in (parity
 tests hand in JAX's draws); otherwise they are drawn from the
 ``torch.Generator`` carried in ``TrackerState``.
+
+Stage boundaries (``spans.stage``) split the tracking program into the
+stages of ``utils/spans.py``'s ``STAGES`` for the span recorder; they do
+nothing while it is off or outside the tracking program.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from ptam_cg_tpu_torch.ops import patch as patchops
 from ptam_cg_tpu_torch.ops import sbi as sbiops
 from ptam_cg_tpu_torch.utils import mest
 from ptam_cg_tpu_torch.utils import se3 as se3lib
+from ptam_cg_tpu_torch.utils import spans
 from ptam_cg_tpu_torch.utils.se3 import SE3
 
 Tensor = torch.Tensor
@@ -181,6 +186,7 @@ def _search_subset(m: MapState | TrackView, frame: TrackFeatures,
                    r_win: int, bf16_cross: bool = False) -> dict:
     """Template warp + windowed ZMSSD + subpix for a subset of points
     (``bf16_cross``: ``ssd_search``'s)."""
+    spans.stage("templates")
     W, H = image_size
     pts_w = m.point_pos[idx]
     p_cam, z1, pix, proj_ok = atan.project_points(pose, pts_w, cam,
@@ -202,11 +208,13 @@ def _search_subset(m: MapState | TrackView, frame: TrackFeatures,
     centers = levelops.atlas_pos(levelops.level_n_pos(pix, level), level, H, W)
     radius = torch.ceil(range_l0 / scale)
     bounds = torch.stack(levelops.level_bounds(level, H, W), dim=-1)
+    spans.stage("ssd_search")
     res, win, win_origin = patchops.ssd_search(
         frame.atlas, frame.corner_mask, templates, centers, radius, bounds,
         r_win=r_win, max_ssd=MAX_SSD, bf16_cross=bf16_cross)
     found = attempted & res.found
 
+    spans.stage("subpix_refine")
     pos_atlas = res.pos
     subpix_done = torch.zeros_like(found)
     step = torch.zeros_like(res.ssd)
@@ -269,6 +277,7 @@ def track_map(m: MapState | TrackView, frame: TrackFeatures, pose: SE3,
     mest_kind = mest.estimator_id(cfg.mestimator)
 
     # ---- PVS: classify every map point ----
+    spans.stage("select")
     p_cam, z1, pix, proj_ok = atan.project_points(pose, m.point_pos, cam,
                                                   image_size)
     warp = patchops.search_level_and_warp(
@@ -304,6 +313,7 @@ def track_map(m: MapState | TrackView, frame: TrackFeatures, pose: SE3,
                           coarse_active, coarse_range, cfg.coarse_subpix_its,
                           subpix_level3_only=False, r_win=R_WIN,
                           bf16_cross=cfg.zmssd_bf16_cross)
+    spans.stage("pose_gn")
     for key in ("found", "attempted", "subpix"):
         cres[key] = cres[key] & do_coarse
     cres["pos_l0"] = torch.where(do_coarse, cres["pos_l0"], 0.0)
@@ -320,6 +330,7 @@ def track_map(m: MapState | TrackView, frame: TrackFeatures, pose: SE3,
                             torch.where(did_coarse, coarse_pose.t, pose.t))
 
     # ---- fine stage ----
+    spans.stage("select")
     # Coarse points stay in the iteration set whenever the coarse search
     # ran. An add, not a set: padded duplicate indices must not erase
     # true entries.
@@ -346,6 +357,7 @@ def track_map(m: MapState | TrackView, frame: TrackFeatures, pose: SE3,
                           r_win=FINE_R_WIN, bf16_cross=cfg.zmssd_bf16_cross)
 
     # ---- combined GN over coarse + fine measurements ----
+    spans.stage("pose_gn")
     def both(key):
         return torch.cat([cres[key], fres[key]])
 
@@ -357,6 +369,8 @@ def track_map(m: MapState | TrackView, frame: TrackFeatures, pose: SE3,
         pose_after_coarse, cam, image_size, all_pts, all_found,
         both("pos_l0"), all_level, cfg.pose_iterations, override_after=5,
         override_val=16.0, mest_kind=mest_kind)
+
+    spans.stage("decide")
 
     def count(index, values, n):
         return torch.zeros(n, dtype=torch.int32, device=dev).index_add_(
@@ -410,6 +424,7 @@ def track_frame(state: TrackerState, m: MapState | TrackView,
     ``cfg.track_local``, the PVS is restricted to the points of the
     ``cfg.track_local_kfs`` keyframes nearest the predicted pose
     (TrackMapLocal)."""
+    spans.stage("sbi_rotation")
     W, H = image_size
     dev = state.velocity.device
     sbi_size = ((H >> 3) // 2, (W >> 3) // 2)
