@@ -9,11 +9,11 @@ Tracks frame 1 of ``chip_smoke.py``'s planar scene (``synth``'s
 every ATen operation it dispatches (a ``TorchDispatchMode``), each under
 the outermost of these functions it runs in: ``pose_gn`` (K4's loop),
 ``calc_sbi_rotation`` (K5's loop and ``se3_from_se2``),
-``subpix_refine``, ``ssd_search``, ``build_frame_tracking`` (the
+``subpix_refine`` (K6's loop), ``ssd_search``, ``build_frame_tracking`` (the
 frontend), and "the rest". An operation that makes no tensor on the
 device (a view, a shape query) counts too, so this is a proxy for the
 kernels a CUDA graph of the step holds, not a count of them. On the
-card (the default) K1-K5 are one operation each; with ``--device cpu``
+card (the default) K1-K6 are one operation each; with ``--device cpu``
 every kernel wrapper runs its plain version instead, which counts the
 operations of the loops the kernels replace. Prints one JSON line.
 """

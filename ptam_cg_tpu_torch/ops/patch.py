@@ -14,9 +14,8 @@
    rounded to bfloat16 (``TrackerConfig.zmssd_bf16_cross``).
 4. ``subpix_refine``: inverse-composition refinement on the search
    windows, or on windows it gathers from the atlas (K2), re-based with a
-   direct indexed load (the JAX package uses a
-   one-hot blend), in a masked loop of fixed count; settled points take
-   no further updates, so this equals the JAX early exit exactly.
+   direct indexed load (the JAX package uses a one-hot blend); the loop
+   lives beside its Hopper kernel (K6) in ``kernels/subpix.py``.
 
 Positions are atlas coordinates unless noted.
 """
@@ -28,6 +27,7 @@ import dataclasses
 import torch
 
 from ptam_cg_tpu_torch.config import LEVELS, PATCH_SIZE
+from ptam_cg_tpu_torch.kernels import subpix as ksubpix
 from ptam_cg_tpu_torch.ops.gather import gather_window_pair, gather_windows
 
 Tensor = torch.Tensor
@@ -68,24 +68,6 @@ def search_level_and_warp(p_cam: Tensor, R_cw: Tensor, pixel_right_w: Tensor,
     det_at = torch.gather(scaled, -1, level[..., None])[..., 0]
     good = (det_at <= 3.0) & (det_at >= 0.25)
     return WarpResult(warp_inv=warp_inv, level=level, good=good)
-
-
-def inv3x3(m: Tensor) -> Tensor:
-    """Batched closed-form (adjugate) 3x3 inverse."""
-    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
-    d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
-    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
-    A = e * i - f * h
-    B = -(d * i - f * g)
-    C = d * h - e * g
-    det = a * A + b * B + c * C
-    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-20, 1e-20, det)
-    adj = torch.stack([
-        torch.stack([A, -(b * i - c * h), b * f - c * e], -1),
-        torch.stack([B, a * i - c * g, -(a * f - c * d)], -1),
-        torch.stack([C, -(a * h - b * g), a * e - b * d], -1),
-    ], -2)
-    return adj * inv_det[..., None, None]
 
 
 def inv2x2(m: Tensor) -> Tensor:
@@ -315,9 +297,9 @@ def subpix_refine(atlas: Tensor, templates: Tensor, pos0: Tensor,
     ``win_origin`` (N, 2) (x, y) where the caller gathered them (the ZMSSD
     search windows, which contain the best candidate); otherwise it
     gathers one (P + 2*MARGIN + 1)^2 window per point around the rounded
-    start (kernel K2). All patch pixels share one bilinear fraction, as
-    in the reference."""
-    N = templates.shape[0]
+    start (kernel K2). The loop is ``kernels/subpix.py``'s (kernel K6 on
+    the card). All patch pixels share one bilinear fraction, as in the
+    reference."""
     P = patch_size
     ph = P // 2
     if windows is None:
@@ -328,60 +310,7 @@ def subpix_refine(atlas: Tensor, templates: Tensor, pos0: Tensor,
         org_y = torch.clamp(c0[:, 1] - ph - MARGIN, 0, Ha - D)
         windows = gather_windows(atlas, org_y, org_x, D)
         win_origin = torch.stack([org_x, org_y], -1).to(torch.float32)
-    Q = P - 2
-    dev = templates.device
-
-    gx = 0.5 * (templates[:, 1:-1, 2:] - templates[:, 1:-1, :-2])
-    gy = 0.5 * (templates[:, 2:, 1:-1] - templates[:, :-2, 1:-1])
-    J = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1).reshape(N, -1, 3)
-    H = J.transpose(1, 2) @ J
-    Hinv = inv3x3(H + 1e-9 * torch.eye(3, device=dev))
-    t_interior = templates[:, 1:-1, 1:-1]
-
-    win = windows
-    D = win.shape[-1]
-    origin = win_origin
-    n_idx = torch.arange(N, device=dev)[:, None, None]
-    span = torch.arange(Q + 1, device=dev)
-
-    pos = pos0
-    mean_diff = torch.zeros(N, dtype=torch.float32, device=dev)
-    conv = torch.zeros(N, dtype=torch.bool, device=dev)
-    failed = torch.zeros(N, dtype=torch.bool, device=dev)
-    last_step = torch.zeros(N, dtype=torch.float32, device=dev)
-    for _ in range(max_its):
-        in_im = ((pos[:, 0] - ph - 1 >= bounds[:, 0]) &
-                 (pos[:, 1] - ph - 1 >= bounds[:, 1]) &
-                 (pos[:, 0] + ph + 1 <= bounds[:, 2]) &
-                 (pos[:, 1] + ph + 1 <= bounds[:, 3]))
-        base = pos - ph - origin                  # patch top-left in window
-        fb = torch.floor(base)
-        frac = base - fb
-        ib = fb.to(torch.int64)
-        in_win = ((ib[:, 0] >= 0) & (ib[:, 1] >= 0)
-                  & (ib[:, 0] + P + 1 <= D) & (ib[:, 1] + P + 1 <= D))
-        failed = failed | ~in_im | ~in_win
-        ibx = torch.clamp(ib[:, 0], 0, D - P - 1)
-        iby = torch.clamp(ib[:, 1], 0, D - P - 1)
-        # S1 = win[ib + 1 + (0..Q, 0..Q)]: the interior and one more
-        # row/column for the bilinear blend.
-        rows = (iby[:, None] + 1 + span)[:, :, None]
-        cols = (ibx[:, None] + 1 + span)[:, None, :]
-        S1 = win[n_idx, rows, cols]                   # (N, Q+1, Q+1)
-        fx = frac[:, 0][:, None, None]
-        fy = frac[:, 1][:, None, None]
-        cur = ((1 - fx) * (1 - fy) * S1[:, :Q, :Q]
-               + fx * (1 - fy) * S1[:, :Q, 1:Q + 1]
-               + (1 - fx) * fy * S1[:, 1:Q + 1, :Q]
-               + fx * fy * S1[:, 1:Q + 1, 1:Q + 1])
-        diff = (cur - t_interior + mean_diff[:, None, None]).reshape(N, 1, -1)
-        accum = (diff @ J)[:, 0]                      # (N, 3)
-        upd = (Hinv @ accum[..., None])[..., 0]
-        active = ~(conv | failed)
-        pos = torch.where(active[:, None], pos - upd[:, :2], pos)
-        mean_diff = torch.where(active, mean_diff - upd[:, 2], mean_diff)
-        step_sq = torch.sum(upd[:, :2] ** 2, dim=-1)
-        last_step = torch.where(active, step_sq, last_step)
-        conv = conv | (active & (step_sq < conv_limit * conv_limit))
-    return SubPixResult(pos=pos, converged=conv & ~failed,
-                        last_step=last_step)
+    pos, converged, last_step = ksubpix.subpix_refine(
+        templates, pos0, bounds, windows, win_origin, max_its, conv_limit,
+        patch_size)
+    return SubPixResult(pos=pos, converged=converged, last_step=last_step)
