@@ -32,13 +32,14 @@ LOWER_PRECISION = {"engine": {"frontend": {"atlas_bf16": True},
 
 def readings(spec, workload: str, seeds, seconds: float, control: bool,
              device="cuda"):
-    """Yield (seed, the numbers compared) of one run a seed."""
+    """Yield (seed, the run's ``cell.Outcome``) of one run a seed: its
+    ``checks`` are the numbers compared."""
     from bench_port import cell as celllib
     for seed in seeds:
-        out = celllib.run(spec, workload, seed, seconds, False, device,
-                          time.perf_counter(),
-                          overrides=LOWER_PRECISION if control else None)
-        yield seed, out.checks
+        yield seed, celllib.run(spec, workload, seed, seconds, False, device,
+                                time.perf_counter(),
+                                overrides=LOWER_PRECISION if control
+                                else None)
 
 
 def reference_bf16(spec, workload: str, seed: int, n_window: int,
@@ -46,13 +47,20 @@ def reference_bf16(spec, workload: str, seed: int, n_window: int,
     """The numbers of the reference itself put in the program's place in
     bfloat16: every frame's true pose, a keyframe every 20 set-up frames
     (its true pose and its frame's pyramid), rounded to bfloat16, judged
-    over a window of ``n_window`` frames as a run's."""
+    over a window of ``n_window`` frames as a run's. Where the mix covers
+    the lens, the covered frames are left out and each event recovers on
+    its first uncovered frame (an event the window's end cuts is left
+    out)."""
     import numpy as np
     import torch
 
     from bench_port import cell as celllib
     from bench_port import reference, scene
-    cfg = spec.config(spec.cell(workload)["config"])
+    from bench_port import traffic as trafficlib
+    cell = spec.cell(workload)
+    cfg = spec.config(cell["config"])
+    covers = trafficlib.Covers(
+        trafficlib.read(spec.traffic(cell["traffic"])).get("cover"), seed)
     seq = scene.Sequence(cfg, seed, device)
 
     def bf16(a):
@@ -74,10 +82,19 @@ def reference_bf16(spec, workload: str, seed: int, n_window: int,
             atlas[r:r + x.shape[0], c:c + x.shape[1]] = x
         atlases.append(atlas)
     plane = np.array([[0.1, 0.2, 0.0], [-0.3, 0.1, 0.0]])
+    reloc = None
+    if covers.cover is not None:
+        reloc = dict(pairs=[], unrecovered=0)
+        i = 0
+        while (back := covers.start(i) + covers.length(i)) < n_window:
+            window[n_setup + covers.start(i): n_setup + back] = False
+            reloc["pairs"].append((n_setup + covers.start(i) - 1,
+                                   n_setup + back))
+            i += 1
     return reference.judge(seq, ks, bf16(seq.R[u]), bf16(seq.t[u]),
                            np.ones(len(ks), dtype=bool), window,
                            bf16(seq.R[kf]), bf16(seq.t[kf]), atlases,
-                           bf16(plane))
+                           bf16(plane), reloc=reloc)
 
 
 def main(argv=None) -> int:
@@ -103,10 +120,12 @@ def main(argv=None) -> int:
                                   args.reference_bf16)}), flush=True)
         return 0
     path = "control" if args.control else "program"
-    for seed, checks in readings(Spec(ROOT), args.workload, args.seeds,
-                                 args.seconds, args.control):
+    for seed, out in readings(Spec(ROOT), args.workload, args.seeds,
+                              args.seconds, args.control):
+        events = [n for n in out.notes if n.startswith("events:")]
         print(json.dumps({"workload": args.workload, "seed": seed,
-                          "path": path, "checks": checks}), flush=True)
+                          "path": path, "checks": out.checks,
+                          "events": events}), flush=True)
     return 0
 
 

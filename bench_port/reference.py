@@ -142,35 +142,59 @@ DIR_STEP = 5
 DIR_MIN_TRAVEL = 0.5
 
 
+def spans_of(window: np.ndarray, step: int):
+    """(a, b): the frames ``step`` apart with every frame from a to b in
+    ``window`` (none straddles a frame left out)."""
+    w = np.flatnonzero(window)
+    a, b = w[:-step], w[step:]
+    whole = b - a == step
+    return a[whole], b[whole]
+
+
 def judge(seq, frame_idx, R_est, t_est, tracked, window, kf_R, kf_t,
-          kf_atlas, points) -> dict:
+          kf_atlas, points, reloc=None) -> dict:
     """The numbers. ``frame_idx`` (N,): each handed-over frame's index in
     the sequence, with its estimated pose ``R_est`` (N, 3, 3), ``t_est``
     (N, 3); ``tracked`` (N,) marks the frames the similarity may use,
-    ``window`` (N,) the frames judged (consecutive); ``kf_*``: the map's
-    valid keyframes; ``points`` (P, 3) its valid points.
+    ``window`` (N,) the frames judged; ``kf_*``: the map's valid
+    keyframes; ``points`` (P, 3) its valid points. ``reloc``, where the
+    mix covers the lens: ``pairs``, for each event that recovered, (the
+    last GOOD frame judged before the cover, the recovered frame), and the
+    count of ``unrecovered`` events.
 
     Scale-free, with no alignment: ``rel_rot_max``, the largest error of
     the rotation between consecutive frames of the window; ``rel_dir_max``,
     the largest angle between the estimated and the true direction of
-    travel over ``DIR_STEP`` frames; ``kf_rel_rot_max``, the same as
+    travel over ``DIR_STEP`` frames (both over judged frames only, and no
+    pair or span straddles one left out); ``kf_rel_rot_max``, the same as
     ``rel_rot_max`` over every pair of keyframes. ``kf_pyramid_max`` as the
-    module says. After the similarity (readings that a map's slow drift
-    moves): ``pose_rot_max``, ``pose_pos_max``, ``kf_pos_max``,
-    ``point_dist_p90``."""
+    module says. With ``reloc``: ``reloc_rel_rot_max`` and
+    ``reloc_rel_dir_max``, the same as ``rel_rot_max`` and ``rel_dir_max``
+    over the pairs of the events (each that recovered; a direction only
+    where the true travel is ``DIR_MIN_TRAVEL`` of the median over
+    ``DIR_STEP`` frames or more), and ``unrecovered``. A number with
+    nothing to compare is left out. After the similarity (readings that a
+    map's slow drift moves): ``pose_rot_max``, ``pose_pos_max``,
+    ``kf_pos_max``, ``point_dist_p90``."""
     u = np.array([seq.index(int(k)) for k in frame_idx])
     R_true, t_true = seq.R[u], seq.t[u]
     unit = float(np.linalg.norm(seq.path.centers, axis=-1).mean())
-    w = np.flatnonzero(window)
-    Re, te = relative(R_est, t_est, w[:-1], w[1:])
-    Rt, _ = relative(R_true, t_true, w[:-1], w[1:])
-    out = dict(rel_rot_max=float(rotation_angle(Re, Rt).max()))
-    a, b = w[:-DIR_STEP], w[DIR_STEP:]
+    out = {}
+    a, b = spans_of(window, 1)
+    if len(a):
+        Re, te = relative(R_est, t_est, a, b)
+        Rt, _ = relative(R_true, t_true, a, b)
+        out["rel_rot_max"] = float(rotation_angle(Re, Rt).max())
+    a, b = spans_of(window, DIR_STEP)
     _, te = relative(R_est, t_est, a, b)
     _, tt = relative(R_true, t_true, a, b)
     travel = np.linalg.norm(tt, axis=-1)
-    far = travel >= DIR_MIN_TRAVEL * np.median(travel)
-    out["rel_dir_max"] = float(direction_angle(te[far], tt[far]).max())
+    min_travel = DIR_MIN_TRAVEL * np.median(travel) if len(a) else 0.0
+    far = travel >= min_travel
+    if far.any():
+        out["rel_dir_max"] = float(direction_angle(te[far], tt[far]).max())
+    if reloc is not None:
+        out.update(_reloc(R_est, t_est, R_true, t_true, reloc, min_travel))
     matches = match_keyframes(kf_atlas, seq.frames)
     ki = np.array([i for i, _ in matches])
     i, j = np.triu_indices(len(ki), 1)
@@ -191,3 +215,19 @@ def judge(seq, frame_idx, R_est, t_est, tracked, window, kf_R, kf_t,
     return dict(out, pose_rot_max=float(rot.max()),
                 pose_pos_max=float(pos.max()), kf_pos_max=float(k_pos.max()),
                 point_dist_p90=float(np.percentile(dist, 90)))
+
+
+def _reloc(R_est, t_est, R_true, t_true, reloc: dict, min_travel: float):
+    """The relocalizer's numbers (``judge``)."""
+    out = dict(unrecovered=float(reloc["unrecovered"]))
+    if not reloc["pairs"]:
+        return out
+    a, b = (np.array(x) for x in zip(*reloc["pairs"]))
+    Re, te = relative(R_est, t_est, a, b)
+    Rt, tt = relative(R_true, t_true, a, b)
+    out["reloc_rel_rot_max"] = float(rotation_angle(Re, Rt).max())
+    far = np.linalg.norm(tt, axis=-1) >= min_travel
+    if far.any():
+        out["reloc_rel_dir_max"] = float(
+            direction_angle(te[far], tt[far]).max())
+    return out

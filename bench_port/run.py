@@ -4,9 +4,11 @@
 
 from the root of a checkout that holds ``BENCHMARK.json``. Prints, as the
 last line of standard output, one JSON object: ``correct``, ``attempted``
-(the window's frames), ``failed`` (those the engine reported lost or not
-tracking), ``metrics`` (the cell's end-to-end metrics, or with ``--trace 1``
-its per-layer ones), ``device`` and, traced, ``breakdown``; and last
+(the window's frames, less those covered and those of an event the
+window's end cut), ``failed`` (those the engine reported lost or not
+tracking, and those after a cover before its recovery), ``metrics`` (the
+cell's end-to-end metrics, or with ``--trace 1`` its per-layer ones),
+``device`` and, traced, ``breakdown``; and last
 ``checks``, each number that decides ``correct`` beside its limit, which
 also end standard error. Exits non-zero with no result when no card (or too
 few) is present, when the run fails (its traceback on standard error), or
@@ -20,6 +22,7 @@ T_START = time.perf_counter()
 
 import argparse  # noqa: E402
 import json  # noqa: E402
+import math  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import traceback  # noqa: E402
@@ -71,12 +74,21 @@ def metrics(spec, cell: str, trace: bool, ctx: dict) -> dict:
 
 
 def result(spec, args, outcome, limits: dict, device: dict) -> dict:
-    checks = {k: {"value": float(outcome.checks[k]),
-                  "limit": float(limits[k])} for k in limits}
-    correct = all(c["value"] <= c["limit"] for c in checks.values())
-    failed = sum(1 for i in outcome.infos
-                 if i.stage != "TRACKING" or i.quality == 0)
-    res = {"correct": correct, "attempted": len(outcome.infos),
+    """The result's line. A check the run did not produce, or produced as
+    no finite number, has the value null and makes the run not correct."""
+    checks = {}
+    for k, limit in limits.items():
+        v = outcome.checks.get(k)
+        checks[k] = {"value": float(v) if v is not None and math.isfinite(v)
+                     else None, "limit": float(limit)}
+    correct = all(c["value"] is not None and c["value"] <= c["limit"]
+                  for c in checks.values())
+    # Covered frames are not attempted; those lost after a cover fail.
+    failed = sum(1 for i, counted, lost in zip(outcome.infos, outcome.counted,
+                                               outcome.lost)
+                 if counted and (lost or i.stage != "TRACKING"
+                                 or i.quality == 0))
+    res = {"correct": correct, "attempted": int(sum(outcome.counted)),
            "failed": failed,
            "metrics": metrics(spec, args.workload, bool(args.trace),
                               outcome.ctx),
@@ -93,7 +105,7 @@ def report(spec, args, outcome, device: dict) -> int:
     and the numbers compared to standard error, then, unless a module of
     JAX or of the JAX package has been loaded by then (exit 3, no result),
     the result's line to standard output."""
-    limits = spec.config(spec.cell(args.workload)["config"])["limits"]
+    limits = spec.limits(args.workload)
     res = result(spec, args, outcome, limits, device)
     for line in outcome.notes + [f"card: {power_limit()}"]:
         print(line, file=sys.stderr)
@@ -101,8 +113,9 @@ def report(spec, args, outcome, device: dict) -> int:
         if k not in limits:
             print(f"reading {k} {v!r} (not compared)", file=sys.stderr)
     for k, c in res["checks"].items():
-        print(f"check {k} {c['value']!r} limit {c['limit']!r}",
-              file=sys.stderr)
+        got = outcome.checks.get(k, "missing")
+        print(f"check {k} {got if c['value'] is None else c['value']!r} "
+              f"limit {c['limit']!r}", file=sys.stderr)
     bad = forbidden_modules()
     if bad:
         print(f"modules of JAX or the JAX package were loaded: {bad}",

@@ -2,7 +2,8 @@
 
 ``BENCHMARK.json`` at the root of the checkout lists the cells, the
 configurations and the metrics. Each configuration is the JSON file its
-entry names; each traffic mix is ``traffic/<name>.json``; each metric is a
+entry names, with the limits of ``correct``; each traffic mix is
+``traffic/<name>.json``, with the limits of its own checks; each metric is a
 reader ``metrics/<name>.py`` with a function ``read(ctx)`` that returns a
 number or None. A later cell, mix or metric is a new file and a new entry:
 nothing here changes.
@@ -42,6 +43,18 @@ class Spec:
     def traffic(self, name: str) -> dict:
         return json.loads((self.here / "traffic" / f"{name}.json")
                           .read_text())
+
+    def limits(self, cell: str) -> dict:
+        """The limits of the numbers that decide a cell's ``correct``: its
+        configuration's, and its mix's for the checks that only the mix
+        produces (a mix may not restate a configuration's)."""
+        w = self.cell(cell)
+        base = self.config(w["config"])["limits"]
+        extra = self.traffic(w["traffic"]).get("limits", {})
+        if set(base) & set(extra):
+            raise ValueError(f"traffic {w['traffic']!r} restates limits "
+                             f"{sorted(set(base) & set(extra))}")
+        return {**base, **extra}
 
     def metrics(self, cell: str, trace: bool) -> list:
         """The metric entries a cell reports: with ``trace`` the per-layer

@@ -17,9 +17,10 @@ SEEDS = (3_200_000_001,)
                                   Spec().doc["workloads"]])
 def test_control_fails_where_the_program_passes(cuda_device, cell):
     spec = Spec()
-    limits = spec.config(spec.cell(cell)["config"])["limits"]
+    limits = spec.limits(cell)
     for lower in (False, True):
-        for _, checks in control.readings(spec, cell, SEEDS, 5.0, lower,
-                                          cuda_device):
-            ok = all(checks[k] <= limits[k] for k in limits)
+        for _, out in control.readings(spec, cell, SEEDS, 5.0, lower,
+                                       cuda_device):
+            checks = out.checks
+            ok = all(k in checks and checks[k] <= limits[k] for k in limits)
             assert ok != lower, checks

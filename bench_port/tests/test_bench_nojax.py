@@ -53,9 +53,9 @@ from bench_port import run
 from bench_port.spec import Spec
 spec = Spec(sys.argv[2], sys.argv[3])
 cell = spec.doc["workloads"][0]["name"]
-limits = spec.config(spec.cell(cell)["config"])["limits"]
+limits = spec.limits(cell)
 outcome = types.SimpleNamespace(
-    checks={k: 0.0 for k in limits}, infos=[], notes=[],
+    checks={k: 0.0 for k in limits}, infos=[], counted=[], lost=[], notes=[],
     ctx={"setup_s": 1.0, "window_s": 1.0, "frames": 1, "trace": None})
 args = types.SimpleNamespace(workload=cell, trace=0)
 sys.exit(run.report(spec, args, outcome, {}))

@@ -6,7 +6,8 @@ the clock of the profiler's events. The trace gives each device activity
 (kernel, copy, fill) with the correlation of the host call that launched it
 (a kernel launch, a graph launch, a copy); that call's time places the
 activity in a span: a kernel whose launch falls inside a ``MapMaker.step``
-span is the mapping layer's, every other one the tracking layer's.
+span is the mapping layer's, every other one the tracking layer's; one
+inside a ``RelocProgram`` span is also the relocalizer's.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from dataclasses import dataclass
 
 STEP = "MapMaker.step"
 FRAME = "process_frame"
+RELOC = "RelocProgram"
 
 
 class Spans:
@@ -101,23 +103,31 @@ def read_profile(prof, w0: int, w1: int) -> Trace:
     return Trace(w0, w1, acts)
 
 
-def attribute(trace: Trace, spans: Spans):
-    """Split the activities into (tracking, mapping): mapping when the
-    host call that launched it started inside a ``MapMaker.step`` span.
-    Spans are matched by time alone, which is exact where one thread
-    launches everything, as the synchronous engine does. Returns also how
-    many activities had no launching call found."""
-    iv = sorted((t0, t1) for _, t0, t1 in spans.of(STEP))
+def launched_in(trace: Trace, spans: Spans, name: str):
+    """Split the activities into (inside, outside): inside when the host
+    call that launched it started inside a ``name`` span. Spans are matched
+    by time alone, which is exact where one thread launches everything, as
+    the synchronous engine does. Returns also how many activities had no
+    launching call found (counted outside)."""
+    iv = sorted((t0, t1) for _, t0, t1 in spans.of(name))
     starts = [a for a, _ in iv]
-    track, mapping, unplaced = [], [], 0
+    inside, outside, unplaced = [], [], 0
     for a in trace.acts:
-        inside = False
+        hit = False
         if a.launch_t is None:
             unplaced += 1
         else:
             i = bisect.bisect_right(starts, a.launch_t) - 1
-            inside = i >= 0 and a.launch_t <= iv[i][1]
-        (mapping if inside else track).append(a)
+            hit = i >= 0 and a.launch_t <= iv[i][1]
+        (inside if hit else outside).append(a)
+    return inside, outside, unplaced
+
+
+def attribute(trace: Trace, spans: Spans):
+    """Split the activities into (tracking, mapping): mapping when it was
+    launched inside a ``MapMaker.step`` span (``launched_in``). Returns
+    also how many activities had no launching call found."""
+    mapping, track, unplaced = launched_in(trace, spans, STEP)
     return track, mapping, unplaced
 
 
@@ -146,8 +156,8 @@ def union_seconds(acts, w0: int, w1: int):
 
 def label(t: int, spans: Spans) -> str:
     """What the host was doing at ``t``: inside a mapping pass, inside a
-    frame, or neither."""
-    for name in (STEP, FRAME):
+    relocalizer's call, inside a frame, or neither."""
+    for name in (STEP, RELOC, FRAME):
         if any(t0 <= t <= t1 for _, t0, t1 in spans.of(name)):
             return name
     return "none"
