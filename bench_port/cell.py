@@ -9,19 +9,28 @@ keyframe, captured no graph and left the MapMaker idle and converged: the
 settled map of a user who works over a mapped workspace. Where the mix
 covers the lens, set-up then covers it once, for the shortest cover, and
 goes on until the engine has recovered (the relocalizer's graph is
-captured there); the run fails if it does not.
+captured there); the run fails if it does not. Where the mix explores
+(``explore``, on a route), set-up instead flies the route's opening from
+its first frame: init and the first keyframes, and the graphs a map of
+that size needs; the run fails if the engine is not tracking at the
+opening's end. Graphs that the map first needs later are captured in the
+window, as a user's flight captures them.
 
 The window: the sweep goes on over the mapped region, frames handed over
 as the traffic mix says (``traffic.py``), each through
-``SLAMEngine.process_frame``; a covered frame is handed over black. With
-``trace``, spans around ``process_frame``, ``MapMaker.step`` and
+``SLAMEngine.process_frame``; a covered frame is handed over black. An
+exploring window is instead the rest of the route, from the opening's end
+to the route's, timed whole: new ground, which the map grows to take in.
+With ``trace``, spans around ``process_frame``, ``MapMaker.step`` and
 ``RelocProgram``'s call are recorded for the whole window, and
 ``torch.profiler`` traces the device's activity over its last
 ``TRACE_SECONDS`` (the window is lengthened so that the traced stretch
 lasts that long). Where the mix covers the lens, the traced stretch starts
 at a cover's first frame instead, the first at or after that point
 (lengthening the window to reach one), and lasts until that event has
-recovered or been given up, if that is later.
+recovered or been given up, if that is later. Exploring, it starts when
+the frames left would take ``TRACE_SECONDS`` at the window's rate so far,
+and lasts to the route's end: mapping over a map near its full size.
 
 An event is one cover and what follows it. The engine reports a frame's
 quality with the next frame (``good``): the event has recovered at the
@@ -129,6 +138,32 @@ def good(info) -> bool:
     return info.stage == "TRACKING" and info.quality == GOOD
 
 
+def keyframe_lags(infos, landed, pending: int) -> list:
+    """For each keyframe that the frames ``infos`` add (``added_kf``), in
+    order: (the index of the frame that added it, that of the frame whose
+    mapping pass landed its integration, or None where none did).
+    ``landed``: the indices of the frames whose ``MapMaker.step`` returned
+    a keyframe's slot, in order; the MapMaker integrates queued keyframes
+    in turn, and ``pending`` were queued, and not landed, before the first
+    frame."""
+    added = [i for i, info in enumerate(infos) if info.added_kf]
+    return [(a, landed[pending + j] if pending + j < len(landed) else None)
+            for j, a in enumerate(added)]
+
+
+def _landings(landed: list, all_infos: list):
+    """A wrapper of ``MapMaker.step`` (for ``Patches.wrap``) that notes in
+    ``landed`` the index of each frame whose pass landed an integration."""
+    def make(step):
+        def counted(*a, **kw):
+            slot = step(*a, **kw)
+            if slot is not None:
+                landed.append(len(all_infos))
+            return slot
+        return counted
+    return make
+
+
 @dataclasses.dataclass
 class Outcome:
     window_s: float
@@ -165,36 +200,41 @@ def run(spec, name: str, seed: int, seconds: float, trace: bool, device,
     torch.backends.cudnn.allow_tf32 = False
     cell = spec.cell(name)
     cfg = merge(spec.config(cell["config"]), overrides)
-    covers = trafficlib.Covers(
-        trafficlib.read(spec.traffic(cell["traffic"])).get("cover"), seed)
+    mix = trafficlib.read(spec.traffic(cell["traffic"]), cfg["path"])
+    covers = trafficlib.Covers(mix.get("cover"), seed)
     notes = []
     patches = Patches()
     try:
-        return _run(cfg, covers, seed, seconds, trace, device, t_start,
-                    tamper, notes, patches)
+        return _run(cfg, covers, mix.get("explore"), seed, seconds, trace,
+                    device, t_start, tamper, notes, patches)
     finally:
         patches.undo()
 
 
-def _run(cfg, covers, seed, seconds, trace, device, t_start, tamper, notes,
-         patches):
+def _run(cfg, covers, explore, seed, seconds, trace, device, t_start,
+         tamper, notes, patches):
     from ptam_cg_tpu_torch.models import mapmaker as mmlib
     from ptam_cg_tpu_torch.models import programs
     caps = Captures(patches)
     spans = tracelib.Spans()
+    all_infos = []
     rec = roofline.Recorder()
     if trace:
         rec.install(patches)
         spans.wrap(patches, mmlib.MapMaker, "step", tracelib.STEP)
         spans.wrap(patches, programs.RelocProgram, "__call__",
                    tracelib.RELOC)
-    seq = scene.Sequence(cfg, seed, device)
+    landed = []
+    if explore is not None:
+        patches.wrap(mmlib.MapMaker, "step", _landings(landed, all_infos))
+    seq = scene.Sequence(cfg, seed, device, None if explore is None
+                         else explore["opening"] + explore["frames"])
     eng = make_engine(cfg, seed, device)
     if tamper is not None:
         tamper(eng)
     path = seq.path
     black = np.zeros_like(seq.frame(0))
-    all_k, all_infos = [], []
+    all_k = []
     left_out = range(0)     # set-up's frames covered, or lost after it
 
     def feed(k, covered=False):
@@ -207,38 +247,18 @@ def _run(cfg, covers, seed, seconds, trace, device, t_start, tamper, notes,
         return info
 
     try:
-        # ---- set-up: the first forth-and-back, then until settled ----
-        sweep = 2 * path.n_sweep
-        end, k = path.ramp + sweep, 0
-        quiet = False
-        for n_sweeps in range(1, MAX_SWEEPS + 1):
-            caps0, kf0 = caps.n, sum(i.added_kf for i in all_infos)
-            while k < end:
-                feed(k)
-                k += 1
-            quiet = (n_sweeps >= MIN_SWEEPS and caps.n == caps0
-                     and settled(eng)
-                     and sum(i.added_kf for i in all_infos) == kf0)
-            if quiet:
-                break
-            end += sweep
-        stages = [i.stage for i in all_infos]
-        first = stages.index("TRACKING") if "TRACKING" in stages else None
-        notes.append(
-            f"set-up: {k} frames ({n_sweeps} sweeps forth and back of "
-            f"{path.n_sweep} frames after a {path.ramp}-frame ramp; "
-            f"{path.speed_deg_s:.2f} deg/s, {path.speed_m_s:.3f} m/s), "
-            f"first tracked frame {first}, {eng.mapmaker.n_kfs()} keyframes, "
-            f"{all_infos[-1].n_points} points, {caps.n} graph captures; "
-            f"settled: {quiet}")
-        if first is None:
-            raise RuntimeError("set-up: the engine never initialized")
+        if explore is None:
+            k = _sweep_setup(eng, path, feed, caps, all_infos, notes)
+        else:
+            k = _explore_setup(explore, eng, path, feed, caps, all_infos,
+                               notes)
         if covers.cover is not None:
             n0 = len(all_infos)
             k, n_left = _setup_cover(covers.cover, feed, k, caps, notes)
             left_out = range(n0, n0 + n_left)
         n_setup = len(all_infos)
         caps_setup = caps.n
+        kfs0, points0 = eng.mapmaker.n_kfs(), all_infos[-1].n_points
         if trace:
             # The profiler's first start sets up its device tracing, which
             # takes seconds: done here, so the window's start is quick.
@@ -250,7 +270,10 @@ def _run(cfg, covers, seed, seconds, trace, device, t_start, tamper, notes,
         returned, handed, events = [], [], []
         prof = w0 = w1 = traced = None
         end_s = seconds
-        if covers.cover is None:
+        if explore is not None:
+            k, prof, w0 = _explore_window(explore, feed, k, t_w0, trace,
+                                          device, returned)
+        elif covers.cover is None:
             while (now := time.perf_counter() - t_w0) < end_s:
                 if trace and prof is None and now >= seconds - TRACE_SECONDS:
                     prof, w0 = _start_profile(device)
@@ -335,6 +358,25 @@ def _run(cfg, covers, seed, seconds, trace, device, t_start, tamper, notes,
                  f"max {gaps.max():.3f}, {int((gaps > 20).sum())} over 20), "
                  f"{captures_in_window} graph captures, "
                  f"{len(kf_R)} keyframes, {len(points)} points at the end")
+    keyframes = None
+    if explore is not None:
+        # Keyframes queued in the opening, less those landed before the
+        # window: the window's first landings are theirs.
+        opening = range(n_setup - explore["opening"], n_setup)
+        pending = (sum(all_infos[i].added_kf for i in opening)
+                   - sum(i in opening for i in landed))
+        keyframes = keyframe_lags(
+            infos, [i - n_setup for i in landed if i >= n_setup], pending)
+        waits = [(len(infos) - 1 if c is None else c) - a
+                 for a, c in keyframes]
+        checks.update(kfs_added=float(len(keyframes)),
+                      kf_lag_frames_max=float(max(waits, default=0)))
+        notes.append(
+            f"explore: {kfs0} keyframes and {points0} points at the "
+            f"window's start; {len(keyframes)} keyframes added in it, "
+            f"{sum(c is None for _, c in keyframes)} not landed by its end, "
+            f"each waiting up to {max(waits, default=0)} frames for its "
+            f"integration to land")
     if events:
         done = [e for e in events if e["status"] == "recovered"]
         notes.append(
@@ -344,9 +386,10 @@ def _run(cfg, covers, seed, seconds, trace, device, t_start, tamper, notes,
             f"{[round(e['recovery_s'] * 1e3, 3) for e in done]} ms; "
             f"{reloc['unrecovered']} unrecovered; "
             f"{sum(e['status'] == 'cut' for e in events)} cut by the end")
-    ctx = dict(setup_s=setup_s, window_s=window_s, frames=len(infos), spans=spans, recorder=rec,
-               window_ns=(tw0_ns, tw1_ns), trace=None, events=events,
-               n_setup=n_setup, trace_ns=None)
+    ctx = dict(setup_s=setup_s, window_s=window_s, frames=len(infos),
+               spans=spans, recorder=rec, window_ns=(tw0_ns, tw1_ns),
+               trace=None, events=events, n_setup=n_setup, trace_ns=None,
+               infos=infos, returned=returned, keyframes=keyframes)
     if prof is not None:
         ctx["trace_ns"] = (w0, w1)
         ctx["trace"] = _reduce(prof, w0, w1, spans, all_infos, notes)
@@ -356,6 +399,77 @@ def _run(cfg, covers, seed, seconds, trace, device, t_start, tamper, notes,
                          f"{e['start']} whole: {e['status']}")
     return Outcome(window_s, infos, all_k[n_setup:], ~(covered | cut), lost_w,
                    memory_peak, checks, ctx, notes)
+
+
+def _sweep_setup(eng, path, feed, caps, all_infos, notes) -> int:
+    """Set-up on an arc: the first forth-and-back, then until settled.
+    Returns the next frame's index."""
+    sweep = 2 * path.n_sweep
+    end, k = path.ramp + sweep, 0
+    quiet = False
+    for n_sweeps in range(1, MAX_SWEEPS + 1):
+        caps0, kf0 = caps.n, sum(i.added_kf for i in all_infos)
+        while k < end:
+            feed(k)
+            k += 1
+        quiet = (n_sweeps >= MIN_SWEEPS and caps.n == caps0
+                 and settled(eng)
+                 and sum(i.added_kf for i in all_infos) == kf0)
+        if quiet:
+            break
+        end += sweep
+    stages = [i.stage for i in all_infos]
+    first = stages.index("TRACKING") if "TRACKING" in stages else None
+    notes.append(
+        f"set-up: {k} frames ({n_sweeps} sweeps forth and back of "
+        f"{path.n_sweep} frames after a {path.ramp}-frame ramp; "
+        f"{path.speed_deg_s:.2f} deg/s, {path.speed_m_s:.3f} m/s), "
+        f"first tracked frame {first}, {eng.mapmaker.n_kfs()} keyframes, "
+        f"{all_infos[-1].n_points} points, {caps.n} graph captures; "
+        f"settled: {quiet}")
+    if first is None:
+        raise RuntimeError("set-up: the engine never initialized")
+    return k
+
+
+def _explore_setup(explore, eng, path, feed, caps, all_infos,
+                   notes) -> int:
+    """Set-up on a route: its opening from the first frame (init and the
+    first keyframes). Returns the next frame's index, the opening's end;
+    raises unless the engine is tracking there."""
+    for k in range(explore["opening"]):
+        feed(k)
+    stages = [i.stage for i in all_infos]
+    first = stages.index("TRACKING") if "TRACKING" in stages else None
+    notes.append(
+        f"set-up: the route's opening, {explore['opening']} of its "
+        f"{path.n_unique} frames (after a {path.ramp}-frame ramp; "
+        f"{path.speed_deg_s:.2f} deg/s, {path.speed_m_s:.3f} m/s, swaying "
+        f"{path.sway_deg:.2f} deg): first tracked frame {first}, "
+        f"{eng.mapmaker.n_kfs()} keyframes, {all_infos[-1].n_points} "
+        f"points, {caps.n} graph captures")
+    if stages[-1] != "TRACKING":
+        raise RuntimeError("set-up: the engine is not tracking at the "
+                           "opening's end")
+    return explore["opening"]
+
+
+def _explore_window(explore, feed, k, t_w0, trace, device, returned):
+    """The window on a route: its frames from ``k``, the opening's end, to
+    its end. Traced, the stretch starts when the frames left would take
+    ``TRACE_SECONDS`` at the window's rate so far. Returns the next frame's
+    index, the profiler and its start."""
+    prof = w0 = None
+    end = explore["opening"] + explore["frames"]
+    while k < end:
+        done = k - explore["opening"]
+        if (trace and prof is None and done and (end - k) * (
+                time.perf_counter() - t_w0) / done <= TRACE_SECONDS):
+            prof, w0 = _start_profile(device)
+        feed(k)
+        returned.append(time.perf_counter())
+        k += 1
+    return k, prof, w0
 
 
 def _covered_window(covers, feed, k, t_w0, seconds, trace, device, handed,

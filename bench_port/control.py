@@ -50,7 +50,10 @@ def reference_bf16(spec, workload: str, seed: int, n_window: int,
     over a window of ``n_window`` frames as a run's. Where the mix covers
     the lens, the covered frames are left out and each event recovers on
     its first uncovered frame (an event the window's end cuts is left
-    out)."""
+    out). Where it explores, the set-up frames are the route's opening,
+    the window is the rest of the route (``n_window`` is ignored), and a
+    keyframe is made every 20 frames of the whole route, as the map grows
+    along it."""
     import numpy as np
     import torch
 
@@ -59,19 +62,24 @@ def reference_bf16(spec, workload: str, seed: int, n_window: int,
     from bench_port import traffic as trafficlib
     cell = spec.cell(workload)
     cfg = spec.config(cell["config"])
-    covers = trafficlib.Covers(
-        trafficlib.read(spec.traffic(cell["traffic"])).get("cover"), seed)
-    seq = scene.Sequence(cfg, seed, device)
+    mix = trafficlib.read(spec.traffic(cell["traffic"]), cfg["path"])
+    covers = trafficlib.Covers(mix.get("cover"), seed)
+    explore = mix.get("explore")
+    if explore is None:
+        seq = scene.Sequence(cfg, seed, device)
+        n_setup = celllib.MIN_SWEEPS * 2 * seq.path.n_sweep + seq.path.ramp
+    else:
+        n_setup, n_window = explore["opening"], explore["frames"]
+        seq = scene.Sequence(cfg, seed, device, n_setup + n_window)
 
     def bf16(a):
         return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(
             torch.bfloat16).double().numpy()
 
-    n_setup = celllib.MIN_SWEEPS * 2 * seq.path.n_sweep + seq.path.ramp
     ks = np.arange(n_setup + n_window)
     u = np.array([seq.index(int(k)) for k in ks])
     window = ks >= n_setup
-    kf = u[:n_setup:20]
+    kf = u[:n_setup if explore is None else len(u):20]
     H, W = seq.frames.shape[1:]
     atlases = []
     for i in kf:

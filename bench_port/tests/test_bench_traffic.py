@@ -36,6 +36,41 @@ def test_a_mix_the_reader_cannot_run_is_refused(mix):
         traffic.read(mix)
 
 
+EXPLORE = {"opening": 100, "frames": 1200}
+ROUTE = {"kind": "route"}
+ARC = {"radius": 0.5, "height": 0.9, "half_sweep_rad": 1.3}
+
+
+def explore(**kw):
+    return {"loop": "closed", "explore": dict(EXPLORE, **kw)}
+
+
+def test_an_explore_mix_reads_on_a_route():
+    assert traffic.read(explore(), ROUTE)["explore"] == EXPLORE
+    assert traffic.read(explore()) == explore()
+
+
+@pytest.mark.parametrize("mix", [
+    {"loop": "closed", "explore": {"opening": 100}},
+    {"loop": "closed", "explore": {"frames": 1200}},
+    {"loop": "closed", "explore": dict(EXPLORE, revisit=True)},
+    {"loop": "closed", "explore": [100, 1200]},
+    explore(opening=0), explore(frames=0), explore(frames=-1200),
+    explore(opening=2.5), explore(frames="1200"), explore(opening=True),
+    dict(explore(), cover=COVER)])
+def test_an_explore_mix_the_reader_cannot_run_is_refused(mix):
+    with pytest.raises(ValueError):
+        traffic.read(mix, ROUTE)
+
+
+@pytest.mark.parametrize("mix, path", [
+    (explore(), ARC), (explore(), dict(ARC, kind="arc")),
+    ({"loop": "closed"}, ROUTE), ({"loop": "closed", "cover": COVER}, ROUTE)])
+def test_a_mix_and_a_path_that_do_not_go_together_are_refused(mix, path):
+    with pytest.raises(ValueError):
+        traffic.read(mix, path)
+
+
 def test_a_cover_schedule_follows_the_seed():
     a, b = (traffic.Covers(COVER, 3_000_000_017) for _ in range(2))
     lengths = [a.length(i) for i in range(40)]

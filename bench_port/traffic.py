@@ -12,6 +12,13 @@ A mix is a file of parameters (``traffic/<name>.json``):
   lasts a whole number of frames drawn uniformly from the range
   ``frames`` ([lower, upper]) by a generator seeded from the run's seed.
   A covered frame is all black; the camera moves on under it.
+- ``explore`` (optional): a flight over new ground, on a configuration
+  whose ``path`` is a ``"route"`` (``scene.Route``), which needs it. The
+  route is ``opening`` + ``frames`` frames long. Set-up flies its first
+  ``opening`` frames (init and the first keyframes); the window is the
+  other ``frames``, handed over in the closed loop and timed whole,
+  whatever ``--seconds`` says.
+  ``explore`` excludes ``cover``.
 - ``limits`` (optional): the limits of the checks that only this mix
   produces, merged with the configuration's (``Spec.limits``).
 
@@ -25,8 +32,9 @@ from __future__ import annotations
 import numpy as np
 
 LOOPS = ("closed",)
-KEYS = ("loop", "cover", "limits")
+KEYS = ("loop", "cover", "explore", "limits")
 COVER_KEYS = ("every_frames", "frames", "first_frame")
+EXPLORE_KEYS = ("opening", "frames")
 #: Mixed into the seed of the cover's lengths, so that they are drawn from
 #: a stream of their own.
 COVER_STREAM = 0x636F766572
@@ -36,8 +44,10 @@ def _positive_int(v) -> bool:
     return isinstance(v, int) and not isinstance(v, bool) and v > 0
 
 
-def read(mix: dict) -> dict:
-    """The mix's parameters, checked."""
+def read(mix: dict, path: dict | None = None) -> dict:
+    """The mix's parameters, checked; with ``path`` (the configuration's),
+    checked against it too: ``explore`` flies a route, and a route is only
+    flown by ``explore``."""
     if mix.get("loop") not in LOOPS:
         raise ValueError(f"loop {mix.get('loop')!r}: one of {LOOPS}")
     unknown = set(mix) - set(KEYS)
@@ -45,6 +55,17 @@ def read(mix: dict) -> dict:
         raise ValueError(f"unknown traffic parameters {sorted(unknown)}")
     if "cover" in mix:
         _check_cover(mix["cover"])
+    if "explore" in mix:
+        if "cover" in mix:
+            raise ValueError("explore and cover exclude each other")
+        _check_explore(mix["explore"])
+    if path is not None:
+        route = path.get("kind", "arc") == "route"
+        if "explore" in mix and not route:
+            raise ValueError("explore flies a route: the configuration's "
+                             "path is an arc")
+        if route and "explore" not in mix:
+            raise ValueError("a route is flown only by explore")
     limits = mix.get("limits", {})
     if not isinstance(limits, dict) or not all(
             isinstance(v, (int, float)) and not isinstance(v, bool)
@@ -67,6 +88,16 @@ def _check_cover(cover) -> None:
     if cover["every_frames"] <= span[1]:
         raise ValueError(f"cover every_frames {cover['every_frames']} must "
                          f"exceed the longest cover, {span[1]}")
+
+
+def _check_explore(explore) -> None:
+    if not isinstance(explore, dict) or set(explore) != set(EXPLORE_KEYS):
+        raise ValueError(f"explore {explore!r}: exactly the keys "
+                         f"{EXPLORE_KEYS}")
+    for k in EXPLORE_KEYS:
+        if not _positive_int(explore[k]):
+            raise ValueError(f"explore {k} {explore[k]!r}: a positive "
+                             f"integer")
 
 
 class Covers:
